@@ -168,7 +168,7 @@ def pack_dfq(path, data_off, n, n_pad, tb):
 def has_range_pack(storage):
     """True when the library provides the chunked (tile-row range)
     pack for this storage — the cold-path pipeline driver's gate
-    (solver/operators.py round 5)."""
+    (solver/operators.py _pack_fq_streamed)."""
     lib = _load()
     return (lib is not None and storage == "fq"
             and hasattr(lib, "ln_pack_fq_range"))
@@ -258,9 +258,8 @@ def pack_fq(path, data_off, n, n_pad, tb):
     the fully-quantized packed triangle layout (native ln_pack_fq);
     bit-identical to DenseOperator.from_dense_fq's numpy pack. The
     planes/scales are PADDED to a multiple of Q16_P walk tiles
-    (all-zero tiles, zero scales — the round-4 layout the blocked q16
-    grid needs, ops/gemv.py); the native pass fills the real triangle
-    only."""
+    (all-zero tiles, zero scales — the fq storage format, ops/gemv.py);
+    the native pass fills the real triangle only."""
     from lam_tpu.ops.gemv import padded_tri_tile_count
     lib = _load()
     nblk = n_pad // tb

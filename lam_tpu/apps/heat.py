@@ -27,9 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from lam_tpu import platform
 from lam_tpu.solver.cg import cg_solve
-from lam_tpu.solver.operators import (LinearOperator, MatrixFreeOperator,
-                                      _wrap_matvec)
+from lam_tpu.solver.operators import LinearOperator, MatrixFreeOperator
 
 BC_NORTH = 0.0
 BC_SOUTH = 100.0
@@ -110,144 +110,59 @@ def _laplace_matvec(nyi, nxi):
     return mv
 
 
-@functools.lru_cache(maxsize=None)
-def _laplace_matvec_padded(nyi, nxi, H, W):
-    """Masked 5-point Laplacian on the padded (H, W) grid (XLA, dtype-
-    polymorphic). Same semantics as _laplace_matvec on the leading
-    (nyi, nxi) interior; keeps padding exactly zero so it shares a
-    vector space with the Pallas kernel (ops/stencil.py invariant)."""
-
-    inner_mv = _laplace_matvec(nyi, nxi)
-
-    def mv(operand, p):
-        u = p.reshape(H, W)[:nyi, :nxi]
-        out = inner_mv(operand, u.reshape(-1)).reshape(nyi, nxi)
-        return jnp.pad(out, ((0, H - nyi), (0, W - nxi))).reshape(-1)
-
-    return mv
-
-
-@functools.lru_cache(maxsize=None)
-def _laplace_matvec_dot_pallas(nyi, nxi, H, W, tbr):
-    """Fused (Ap, p.Ap) via the Pallas stencil kernel — one read of p,
-    one write of y per matvec (the XLA pad formulation moves ~7x the
-    bytes; see ops/stencil.py)."""
-    from lam_tpu.ops.stencil import laplace5_f32
-
-    def mvd(operand, p):
-        del operand
-        y, d = laplace5_f32(p.reshape(H, W), nyi=nyi, nxi=nxi, tbr=tbr)
-        return y.reshape(-1), d
-
-    return mvd
-
-
-class _StencilOperator(LinearOperator):
-    """Operator on the 2-D zero-padded grid vector space.
-
-    The generic base pads/crops 1-D tails; the stencil pads in 2-D
-    (rows to H, columns to W), so prepare_b/extract_x are overridden.
-    All CG vectors keep exact zeros in the padding (masked matvecs), so
-    dot products and norms are unaffected."""
-
-    def __init__(self, matvec_dot_fn, operand, nyi, nxi, H, W, dtype):
-        super().__init__(matvec_dot_fn, operand, nyi * nxi, H * W, dtype)
-        self._dims = (nyi, nxi, H, W)
-
-    def prepare_b(self, b):
-        nyi, nxi, H, W = self._dims
-        b = jnp.asarray(b, dtype=self.vector_dtype)
-        if b.shape != (self.n,):
-            raise ValueError(f"rhs has shape {b.shape}, "
-                             f"expected ({self.n},)")
-        return jnp.pad(b.reshape(nyi, nxi),
-                       ((0, H - nyi), (0, W - nxi))).reshape(-1)
-
-    def extract_x(self, x_padded):
-        nyi, nxi, H, W = self._dims
-        return x_padded.reshape(H, W)[:nyi, :nxi].reshape(-1)
-
-
 # -- row-sharded stencil over a device mesh ---------------------------------
 #
-# The grid's rows are sharded over a 1-D mesh; each matvec exchanges ONE
-# boundary row with each neighbor (jax.lax.ppermute — the halo-exchange
-# pattern the gemv-style operators never need) and runs the same Pallas
-# kernel per shard with the received rows as its up/dn edges. Vectors
-# stay row-sharded end-to-end; the generic per-shard CG/ir loop bodies
-# from lam_tpu/parallel/pcg.py run unchanged (dots psum over the axis).
+# The grid's rows are sharded over a 1-D mesh (zero rows pad the last
+# shard); each matvec exchanges ONE boundary row with each neighbor
+# (jax.lax.ppermute — the halo-exchange pattern the gemv-style operators
+# never need) and applies the masked stencil to the shard with the
+# received rows as its north/south edges. Vectors stay row-sharded
+# end-to-end; the generic per-shard CG/ir loop bodies from
+# lam_tpu/parallel/pcg.py run unchanged (dots psum over the axis).
 
 
-def _sharded_stencil_applies(axis, nyi, nxi, Hs, W, tbr, g):
-    """(apply32, apply_acc) per-shard stencil matvecs (inside shard_map)."""
-    from lam_tpu.ops.stencil import laplace5_f32_halo
-
+def _sharded_stencil_apply(axis, nyi, nxi, Hs, g):
+    """Per-shard masked stencil matvec (inside shard_map), in the dtype
+    of p: the f32 inner and the f64 refinement operator alike."""
     fwd = [(i, (i + 1) % g) for i in range(g)]
     bwd = [(i, (i - 1) % g) for i in range(g)]
 
-    def halos(u):
+    def apply(operand, p):
+        del operand
+        u = p.reshape(Hs, nxi)
+        c = jax.lax.axis_index(axis)
         # neighbor edge rows; the ring wrap-around delivers a WRONG row
         # to shard 0's top / shard g-1's bottom, but those sit at the
-        # true boundary where the mask forces zeros — overwrite with 0.
-        c = jax.lax.axis_index(axis)
+        # true boundary where the stencil needs zeros — overwrite.
         up = jax.lax.ppermute(u[-1:, :], axis, fwd)    # from c-1
         dn = jax.lax.ppermute(u[:1, :], axis, bwd)     # from c+1
         up = jnp.where(c == 0, jnp.zeros_like(up), up)
         dn = jnp.where(c == g - 1, jnp.zeros_like(dn), dn)
-        return up, dn
-
-    def nrows(c):
-        return jnp.clip(nyi - c * Hs, 0, Hs).astype(jnp.int32)
-
-    def apply32_dot(operand, p):
-        del operand
-        u = p.reshape(Hs, W)
-        up, dn = halos(u)
-        y, d = laplace5_f32_halo(u, up, dn,
-                                 nrows(jax.lax.axis_index(axis)),
-                                 nxi=nxi, tbr=tbr)
-        return y.reshape(-1), d
-
-    def apply32(operand, p):
-        return apply32_dot(operand, p)[0]
-
-    def apply_acc(operand, p):
-        del operand
-        u = p.reshape(Hs, W)
-        up, dn = halos(u)
-        north = jnp.concatenate([up.astype(u.dtype), u[:-1, :]], axis=0)
-        south = jnp.concatenate([u[1:, :], dn.astype(u.dtype)], axis=0)
+        north = jnp.concatenate([up, u[:-1, :]], axis=0)
+        south = jnp.concatenate([u[1:, :], dn], axis=0)
         zc = jnp.zeros((Hs, 1), u.dtype)
         west = jnp.concatenate([zc, u[:, :-1]], axis=1)
         east = jnp.concatenate([u[:, 1:], zc], axis=1)
-        rows = jax.lax.broadcasted_iota(jnp.int32, (Hs, W), 0)
-        cols = jax.lax.broadcasted_iota(jnp.int32, (Hs, W), 1)
-        mask = jnp.logical_and(
-            rows < nrows(jax.lax.axis_index(axis)), cols < nxi)
-        y = jnp.where(mask, 4.0 * u - north - south - west - east, 0.0)
+        # rows past the grid (last shard's padding) stay exactly zero
+        rows = c * Hs + jax.lax.broadcasted_iota(jnp.int32, (Hs, nxi), 0)
+        y = jnp.where(rows < nyi, 4.0 * u - north - south - west - east,
+                      0.0)
         return y.reshape(-1)
 
-    return apply32, apply32_dot, apply_acc
+    return apply
 
 
 @functools.lru_cache(maxsize=None)
-def _build_sharded_heat_ir(mesh, axis, nyi, nxi, Hs, W, tbr,
-                           max_cycles):
+def _build_sharded_heat_ir(mesh, axis, nyi, nxi, Hs, max_cycles):
     from jax.sharding import PartitionSpec as P
 
     from lam_tpu.parallel.pcg import _make_local_ir
     from lam_tpu.solver.cg import CGResult
 
     g = mesh.shape[axis]
-    apply32, apply32_dot, apply_acc = _sharded_stencil_applies(
-        axis, nyi, nxi, Hs, W, tbr, g)
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-    mapped = shard_map(
-        _make_local_ir(apply32, apply_acc, axis, max_cycles,
-                       apply32_dot=apply32_dot),
+    apply = _sharded_stencil_apply(axis, nyi, nxi, Hs, g)
+    mapped = jax.shard_map(
+        _make_local_ir(apply, apply, axis, max_cycles),
         mesh=mesh,
         in_specs=(P(), P(axis), P(), P(), P()),
         out_specs=CGResult(x=P(axis), num_iters=P(), rel_residual=P(),
@@ -258,27 +173,27 @@ def _build_sharded_heat_ir(mesh, axis, nyi, nxi, Hs, W, tbr,
 
 
 class _ShardedStencilOperator(LinearOperator):
-    """Row-sharded padded-grid operator (see _StencilOperator for the
-    single-device twin; here prepare_b also places the row blocks)."""
+    """Row-sharded grid operator: H = g * Hs rows (zero rows pad the
+    last shard) of nxi columns; prepare_b places the row blocks."""
 
-    def __init__(self, nyi, nxi, H, W, tbr, mesh):
+    def __init__(self, nyi, nxi, mesh):
         axis = mesh.axis_names[0]
         g = mesh.shape[axis]
         self._mesh, self._axis = mesh, axis
-        self._dims = (nyi, nxi, H, W)
-        self._tbr, self._g, self._hs = tbr, g, H // g
-        super().__init__(None, jnp.zeros(()), nyi * nxi, H * W,
-                         jnp.float64)
+        self._hs = -(-nyi // g)
+        self._dims = (nyi, nxi, g * self._hs)
+        super().__init__(None, jnp.zeros(()), nyi * nxi,
+                         g * self._hs * nxi, jnp.float64)
 
     def prepare_b(self, b):
         from jax.sharding import NamedSharding, PartitionSpec as P
-        nyi, nxi, H, W = self._dims
+        nyi, nxi, H = self._dims
         b = np.asarray(b, dtype=np.float64)
         if b.shape != (self.n,):
             raise ValueError(f"rhs has shape {b.shape}, "
                              f"expected ({self.n},)")
-        bp = np.zeros((H, W))
-        bp[:nyi, :nxi] = b.reshape(nyi, nxi)
+        bp = np.zeros((H, nxi))
+        bp[:nyi] = b.reshape(nyi, nxi)
         flat = bp.reshape(-1)
         # make_array_from_callback, not device_put: a plain device_put
         # of host data cannot target a sharding that spans other
@@ -289,10 +204,10 @@ class _ShardedStencilOperator(LinearOperator):
 
     def extract_x(self, x_padded):
         from lam_tpu.solver.api import _host_array
-        nyi, nxi, H, W = self._dims
+        nyi, nxi, _ = self._dims
         # _host_array: x is sharded across processes in multi-process
         # runs; np.asarray alone raises on non-addressable shards
-        return _host_array(x_padded).reshape(H, W)[:nyi, :nxi].reshape(-1)
+        return _host_array(x_padded)[:nyi * nxi]
 
     def run_cg_ir(self, op32, b_padded, max_iters, rel_error, max_cycles,
                   inner_floor, inv_diag32=None):
@@ -301,12 +216,24 @@ class _ShardedStencilOperator(LinearOperator):
             raise NotImplementedError(
                 "the Laplacian stencil has a constant diagonal (4); "
                 "Jacobi preconditioning is a no-op — run without it")
-        nyi, nxi, _, W = self._dims
+        nyi, nxi, _ = self._dims
         solver = _build_sharded_heat_ir(self._mesh, self._axis, nyi, nxi,
-                                        self._hs, W, self._tbr,
-                                        int(max_cycles))
+                                        self._hs, int(max_cycles))
         return solver(self.operand, b_padded, max_iters, rel_error,
                       inner_floor)
+
+
+def boundary_rhs(grid):
+    """The rhs of the interior system, (ny-2, nx-2): each cell's sum of
+    its adjacent boundary temperatures."""
+    grid = np.asarray(grid, dtype=np.float64)
+    ny, nx = grid.shape
+    b = np.zeros((ny - 2, nx - 2), dtype=np.float64)
+    b[0, :] += grid[0, 1:nx - 1]           # south boundary row
+    b[-1, :] += grid[ny - 1, 1:nx - 1]     # north
+    b[:, 0] += grid[1:ny - 1, 0]           # west
+    b[:, -1] += grid[1:ny - 1, nx - 1]     # east
+    return b
 
 
 def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
@@ -317,31 +244,20 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
     b[i,j] = sum of adjacent boundary temperatures. The fixed point of
     the reference's Jacobi sweep is exactly the solution of this system.
 
-    precision: 'f64' runs the whole loop in f64 (native on CPU, the
-    oracle path; SLOW on TPU where f64 is software-emulated — measured
-    88 ms/iteration at 1200x1000). 'ir' runs the inner CG in f32 with
-    f64 true-residual refinement restarts — the same mixed-precision
-    engine as the dense solver, with the inner matvec being the fused
-    Pallas 5-point stencil kernel (ops/stencil.py: one read of p, one
-    write of y, in-kernel p.Ap partials) on the 2-D padded grid and the
-    refinement matvec the masked XLA stencil on the same vector space.
-    'auto' picks 'ir' on TPU (measured 1200x1000: 350 s f64-emulated ->
-    0.56 s), 'f64' elsewhere.
+    precision: 'f64' runs the whole loop in f64. 'ir' runs the inner CG
+    in f32 with f64 true-residual refinement restarts — the same
+    mixed-precision engine as the dense solver; both operators are the
+    same XLA stencil, applied in the vector's dtype. 'auto' is the
+    platform table's precision (lam_tpu/platform.py).
 
     devices > 1 row-shards the grid over a 1-D mesh: one boundary-row
     ppermute per neighbor per matvec (halo exchange), replicated
     nothing — vectors stay sharded end-to-end (implies 'ir').
     """
-    import jax
-
     grid = np.asarray(grid, dtype=np.float64)
     ny, nx = grid.shape
     nyi, nxi = ny - 2, nx - 2
-    b = np.zeros((nyi, nxi), dtype=np.float64)
-    b[0, :] += grid[0, 1:nx - 1]           # south boundary row
-    b[-1, :] += grid[ny - 1, 1:nx - 1]     # north
-    b[:, 0] += grid[1:ny - 1, 0]           # west
-    b[:, -1] += grid[1:ny - 1, nx - 1]     # east
+    b = boundary_rhs(grid)
 
     if devices and devices > 1:
         # reject an EXPLICIT f64 request (the sharded path implements
@@ -351,31 +267,22 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
                 "the row-sharded heat path implements only the "
                 "mixed-precision ir solver; drop --precision f64 or "
                 "--devices")
-        from lam_tpu.ops.stencil import padded_hw
         from lam_tpu.parallel.mesh import make_mesh
         from lam_tpu.solver.cg import cg_solve_ir
-        mesh = make_mesh(devices)
-        g = mesh.shape[mesh.axis_names[0]]
-        H, W, tbr = padded_hw(nyi, nxi, row_groups=g)
-        op = _ShardedStencilOperator(nyi, nxi, H, W, tbr, mesh)
+        op = _ShardedStencilOperator(nyi, nxi, make_mesh(devices))
         res = cg_solve_ir(op, op, b.reshape(-1), max_iters=max_iters,
                           rel_error=rel_error, max_cycles=40)
         out = grid.copy()
         out[1:ny - 1, 1:nx - 1] = np.asarray(res.x).reshape(nyi, nxi)
         return out, int(res.num_iters), float(res.rel_residual)
     if precision == "auto":
-        precision = "ir" if jax.default_backend() == "tpu" else "f64"
+        precision = platform.current().precision
+    mv = _laplace_matvec(nyi, nxi)
     if precision == "ir":
-        from lam_tpu.ops.stencil import padded_hw
         from lam_tpu.solver.cg import cg_solve_ir
-        H, W, tbr = padded_hw(nyi, nxi)
         operand = jnp.zeros(())
-        op = _StencilOperator(
-            _wrap_matvec(_laplace_matvec_padded(nyi, nxi, H, W)),
-            operand, nyi, nxi, H, W, jnp.float64)
-        op32 = _StencilOperator(
-            _laplace_matvec_dot_pallas(nyi, nxi, H, W, tbr),
-            operand, nyi, nxi, H, W, jnp.float32)
+        op = MatrixFreeOperator(mv, operand, nyi * nxi, jnp.float64)
+        op32 = MatrixFreeOperator(mv, operand, nyi * nxi, jnp.float32)
         # the Laplacian's condition number grows as O(side^2), so one
         # f32 inner cycle recovers fewer digits than on the dense SPD
         # spectrum — allow more refinement restarts than the dense
@@ -383,8 +290,7 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
         res = cg_solve_ir(op32, op, b.reshape(-1), max_iters=max_iters,
                           rel_error=rel_error, max_cycles=40)
     else:
-        op = MatrixFreeOperator(_laplace_matvec(nyi, nxi), jnp.zeros(()),
-                                nyi * nxi)
+        op = MatrixFreeOperator(mv, jnp.zeros(()), nyi * nxi)
         res = cg_solve(op, b.reshape(-1), max_iters=max_iters,
                        rel_error=rel_error)
     out = grid.copy()

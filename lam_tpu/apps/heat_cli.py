@@ -41,8 +41,8 @@ def _cli_main(argv=None):
     p.add_argument("--precision", choices=["auto", "f64", "ir"],
                    default="auto",
                    help="CG solver precision: ir = f32 inner + f64 "
-                        "refinement (TPU default), f64 = native/emulated "
-                        "f64 loop (CPU default)")
+                        "refinement, f64 = f64 loop (the default on "
+                        "every platform)")
     args = p.parse_args(argv)
 
     if args.nx <= 0 or args.ny <= 0 or args.max_iterations < 0:

@@ -25,10 +25,10 @@ def clean_rows(lines):
     """Data rows only, sorted by (N, procs).
 
     Rows carrying an inline '# ...' annotation are DROPPED, not
-    ingested: the TPU study files mark non-measurement rows that way
-    ('# projected', results/WEAK_SCALABILITY_TPU.txt — projections from
-    measured single-chip rates, honest in the study file but NOT
-    measurements), and a best-pick corpus must never mix the two. The
+    ingested: study files mark non-measurement rows that way
+    ('# projected' — projections from measured single-device rates,
+    honest in a study file but NOT measurements), and a best-pick
+    corpus must never mix the two. The
     reference's clean.sh (TESTS/results/clean.sh:14-44) only ever saw
     measured rows, so dropping annotated ones preserves its semantics.
     Returns (rows, n_dropped)."""

@@ -3,15 +3,15 @@
 The reference pre-generates its benchmark matrices ONCE with
 random_spd_system and every SLURM sweep re-reads the files
 (TESTS/GPU_SCRIPTS/GPU_2_NODE.sh:13,33-39 point at a shared project
-dir). The TPU analog: spectrum-law systems cached as .npy under
-io/bench/ (gitignored, persists with the checkout) so neither bench.py
-nor `lam-bench --mode spd --pack-cache` pays the Householder
-generation again (N=40000 is ~30 min on a 1-core host; N=70000 ~75).
+dir). Here: spectrum-law systems cached as .npy under io/bench/
+(gitignored, persists with the checkout) so neither bench.py nor
+`lam-bench --mode spd --pack-cache` pays the Householder generation
+again (tens of minutes on one core at N=40000, over an hour at 70000).
 
-Path scheme matches bench.py's round-3 caches (lam_bench_spd_N{n}_s{seed}
+Path scheme matches bench.py's caches (lam_bench_spd_N{n}_s{seed}
 .npy) so the two tools share one corpus: search order is
 $LAM_BENCH_CACHE_DIR, <repo-root>/io/bench (repo root derived from this
-file: the driver may run tools from any cwd), <cwd>/io/bench, /tmp.
+file: tools may run from any cwd), <cwd>/io/bench, /tmp.
 """
 
 from __future__ import annotations

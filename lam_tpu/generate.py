@@ -70,22 +70,22 @@ def tridiagonal_hi_plane(n, n_padded=None):
     return hi
 
 
-def tridiagonal_hi_plane_device(n, n_padded=None):
-    """`tridiagonal_hi_plane` built ON DEVICE (jit iota + where).
+def tridiagonal_hi_plane_device(n, n_padded=None, dtype="float32"):
+    """`tridiagonal_hi_plane` built ON DEVICE (jit iota + where), in
+    `dtype` ('float64' gives the f64 matrix itself).
 
     The gen-mode matrix is a closed-form function of (i, j), so there is
-    no reason to build it on the host and ship N^2 floats over PCIe (or
-    a remote tunnel): one fused XLA program writes the f32 hi plane at
-    HBM speed. This is the TPU-native answer to the reference's
-    OpenMP-parallel host generation loop
-    (ConjugateGradient_CPU_MPI_OMP.hpp:237-247) — load_s collapses from
-    transfer-bound seconds to milliseconds."""
+    no reason to build it on the host and ship N^2 values over PCIe: one
+    fused XLA program writes it at device-memory speed. This is the
+    device-side answer to the reference's OpenMP-parallel host
+    generation loop (ConjugateGradient_CPU_MPI_OMP.hpp:237-247)."""
     import jax
 
-    return _tridiag_hi_device_jit(int(n), int(n_padded or n))
+    return jax.jit(_tridiag_hi_device_impl, static_argnums=(0, 1, 2))(
+        int(n), int(n_padded or n), dtype)
 
 
-def _tridiag_hi_device_impl(n, n_padded):
+def _tridiag_hi_device_impl(n, n_padded, dtype="float32"):
     import jax
     import jax.numpy as jnp
 
@@ -94,13 +94,7 @@ def _tridiag_hi_device_impl(n, n_padded):
     in_range = (i < n) & (j < n)
     d = i - j
     vals = jnp.where(d == 0, 2.0, jnp.where((d == 1) | (d == -1), 1.0, 0.0))
-    return jnp.where(in_range, vals, 0.0).astype(jnp.float32)
-
-
-def _tridiag_hi_device_jit(n, n_padded):
-    import jax
-
-    return jax.jit(_tridiag_hi_device_impl, static_argnums=(0, 1))(n, n_padded)
+    return jnp.where(in_range, vals, 0.0).astype(dtype)
 
 
 def _tridiag_hi_slab_impl(n, n_padded, g, m):
@@ -138,10 +132,9 @@ def _tridiag_hi_packed_impl(n, tb, it, kt, nblk):
     nonzero tile — the nblk diagonal tiles (in-tile tridiagonal) and
     the nblk-1 subdiagonal-neighbor tiles (it == kt+1, a single 1 in
     the top-right corner). Scattering just those into zeros keeps the
-    construction's working set at ~n*tb elements; the first (dense
-    per-element gather) formulation materialized several full-buffer
-    int32 temporaries and OOM'd one v5e above N~48000. `nblk` (static)
-    = total row-tiles = n_padded // tb."""
+    construction's working set at ~n*tb elements; a dense per-element
+    gather would materialize several full-buffer int32 temporaries.
+    `nblk` (static) = total row-tiles = n_padded // tb."""
     import jax
     import jax.numpy as jnp
 
@@ -188,9 +181,7 @@ def _tridiag_q1_packed_impl(n, tb, it, kt, nblk):
     DenseOperator.from_gen_fq): diagonal tiles carry only the +-1 band
     quantized against TRIDIAG_Q1_SCALE (q = 16384, exact), the
     subdiagonal-neighbor tiles the single top-right 1; everything else
-    0. Same sparsity-aware scatter as _tridiag_hi_packed_impl — the
-    dense per-element form materializes full-buffer int32 temporaries
-    and OOMs one v5e."""
+    0. Same sparsity-aware scatter as _tridiag_hi_packed_impl."""
     import jax
     import jax.numpy as jnp
 

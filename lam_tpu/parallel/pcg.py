@@ -10,9 +10,9 @@ every iteration broadcasts p from rank 0, gathers partial Ap back to rank
 Here the entire solve is ONE `shard_map` program over a 1-D mesh:
 
   * A row-sharded P('rows', None); x/r/p/b row-sharded P('rows').
-  * matvec: all_gather(p) over ICI (the dual of the reference's
-    Allgatherv on Ap, ConjugateGradient_CPU_MPI_OMP.hpp:505) then the
-    local Pallas gemv on the shard's row-block.
+  * matvec: all_gather(p) (the dual of the reference's Allgatherv on
+    Ap, ConjugateGradient_CPU_MPI_OMP.hpp:505) then the local XLA
+    matvec on the shard's row-block.
   * dot products: local partial + lax.psum — replacing MPI_Allreduce
     (CPU_MPI_OMP.hpp:464) and the NCCL send/recv gather (..._NCCL.cu:365-372).
   * vector updates: local on every shard. No rank-0 serialization; every
@@ -41,12 +41,10 @@ from lam_tpu.solver.operators import (
     LinearOperator,
     padded_size,
     df64_plane_provider,
+    resolve,
 )
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+shard_map = jax.shard_map
 
 
 def _operand_spec(axis, is_pair):
@@ -57,7 +55,7 @@ def _operand_spec(axis, is_pair):
 def _make_apply(matvec_local, matvec_cols, axis, comm, g):
     """Per-shard distributed matvec: LOCAL p row-block -> LOCAL Ap block.
 
-    comm='gather': all_gather(p) over ICI, then one local gemv over the
+    comm='gather': all_gather(p), then one local gemv over the
       full row-stripe — the simple program; XLA must finish the gather
       before any multiply starts.
     comm='ring': G steps of (partial gemv on the currently-held p block
@@ -65,9 +63,8 @@ def _make_apply(matvec_local, matvec_cols, axis, comm, g):
       ppermute of the p block to the ring neighbor — compute hides the
       transfer (SURVEY.md §7 stage 6; the same pipelining shape as ring
       attention). Same total comm volume ((G-1)/G of p per chip), but no
-      serialization of gather before gemv. The column stripe is selected
-      inside the Pallas kernel via a scalar-prefetched block index
-      (lam_tpu/ops/gemv.py:gemv_f32_cols) so nothing is copied.
+      serialization of gather before gemv. The column stripe is a
+      dynamic slice of the local row block.
     """
     if comm == "gather" or g == 1:
 
@@ -396,20 +393,20 @@ class ShardedDenseOperator(LinearOperator):
     # -- construction ------------------------------------------------------
 
     @staticmethod
-    def shard_padded_size(n, mesh, engine):
-        """Pad so every shard is tile-aligned for the Pallas kernels."""
-        import math
+    def shard_padded_size(n, mesh):
+        """Pad so the rows split evenly over the mesh."""
+        return padded_size(n, mesh.devices.size)
 
-        g = mesh.devices.size
-        if engine == "pallas":
-            from lam_tpu.ops.gemv import TILE_K, TILE_M
-            # must divide by g AND leave TILE_M-aligned shards AND keep
-            # TILE_K column alignment; max() alone breaks non-power-of-
-            # two meshes (g=3: max(1024, 768) = 1024, not divisible by 3)
-            mult = math.lcm(TILE_K, TILE_M * g)
-        else:
-            mult = g
-        return padded_size(n, mult)
+    @staticmethod
+    def _resolve(precision, engine):
+        precision, engine = resolve(precision, engine)
+        if engine != "xla":
+            raise ValueError(
+                f"row-sharded blocks are rectangular: engine={engine!r} "
+                "does not apply (use backend='sharded' with "
+                "engine='pallas_symm_packed' for the band-pair "
+                "triangle walk)")
+        return precision, engine
 
     @staticmethod
     def from_row_block_fn(row_block_fn, n, mesh=None, precision="auto",
@@ -418,25 +415,15 @@ class ShardedDenseOperator(LinearOperator):
         ndarray of shape (num_rows, n_padded_cols... ) — actually (num_rows,
         n) source rows; padding is applied here.
 
-        This is the TPU analog of the reference's per-rank MPI-IO reads /
+        This is the device-side analog of the reference's per-rank MPI-IO reads /
         per-rank generation (ConjugateGradient_CPU_MPI_OMP.hpp:325-363,
         :237-247): each shard's rows are produced independently, so no
         host ever materializes the full matrix.
         """
         if mesh is None:
             mesh = make_mesh()
-        if precision == "auto":
-            precision = "df64" if jax.default_backend() == "tpu" else "f64"
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if engine == "pallas_symm":
-            # row-sharded local blocks are rectangular, not symmetric —
-            # the lower-triangle kernel is a single-device engine
-            engine = "pallas"
-        if precision == "f64" and engine == "pallas":
-            engine = "xla"
-
-        n_p = ShardedDenseOperator.shard_padded_size(n, mesh, engine)
+        precision, engine = ShardedDenseOperator._resolve(precision, engine)
+        n_p = ShardedDenseOperator.shard_padded_size(n, mesh)
         a_sharding = NamedSharding(mesh, P(axis, None))
 
         def padded_block(row_start, num_rows):
@@ -473,31 +460,41 @@ class ShardedDenseOperator(LinearOperator):
                                     engine, mesh, axis, comm)
 
     @staticmethod
-    def from_gen_tridiagonal(n, mesh=None, engine="auto", axis=ROWS_AXIS,
-                             comm="gather"):
+    def from_gen_tridiagonal(n, mesh=None, precision="auto", engine="auto",
+                             axis=ROWS_AXIS, comm="gather"):
         """Gen-mode dense tridiagonal built ON DEVICE, shard-local.
 
-        The matrix is a closed-form function of (i, j) and its {0,1,2}
-        entries are exact in f32, so the df64 pair is (hi, 0) and XLA
-        can write each shard directly into its owner's HBM (jit with
-        out_shardings) — no host build, no host->device transfer. The
-        device-side answer to the reference's per-rank OpenMP fill
+        The matrix is a closed-form function of (i, j) whose {0,1,2}
+        entries are exact in every storage precision (the df64 pair is
+        (hi, 0)), so XLA writes each shard directly into its owner's
+        memory (jit with out_shardings) — no host build, no
+        host->device transfer. The device-side answer to the
+        reference's per-rank OpenMP fill
         (ConjugateGradient_CPU_MPI_OMP.hpp:237-247)."""
         from lam_tpu import generate as gen
         if mesh is None:
             mesh = make_mesh()
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if engine == "pallas_symm":
-            engine = "pallas"  # row shards are rectangular
-        n_p = ShardedDenseOperator.shard_padded_size(n, mesh, engine)
+        precision, engine = ShardedDenseOperator._resolve(precision, engine)
+        n_p = ShardedDenseOperator.shard_padded_size(n, mesh)
         a_sharding = NamedSharding(mesh, P(axis, None))
-        hi = jax.jit(gen._tridiag_hi_device_impl, static_argnums=(0, 1),
-                     out_shardings=a_sharding)(n, n_p)
-        lo = jax.jit(lambda: jnp.zeros((n_p, n_p), jnp.float32),
-                     out_shardings=a_sharding)()
-        return ShardedDenseOperator((hi, lo), n, n_p, jnp.float64,
-                                    "df64", engine, mesh, axis, comm)
+
+        def build(dtype):
+            return jax.jit(gen._tridiag_hi_device_impl,
+                           static_argnums=(0, 1, 2),
+                           out_shardings=a_sharding)(n, n_p, dtype)
+
+        if precision in ("f64", "f32"):
+            operand = build("float64" if precision == "f64" else "float32")
+            vdtype = operand.dtype
+        elif precision == "df64":
+            lo = jax.jit(lambda: jnp.zeros((n_p, n_p), jnp.float32),
+                         out_shardings=a_sharding)()
+            operand = (build("float32"), lo)
+            vdtype = jnp.float64
+        else:
+            raise ValueError(f"unknown precision {precision!r}")
+        return ShardedDenseOperator(operand, n, n_p, vdtype, precision,
+                                    engine, mesh, axis, comm)
 
     @staticmethod
     def from_dense(a, mesh=None, precision="auto", engine="auto",
@@ -631,15 +628,13 @@ class ShardedDenseOperator(LinearOperator):
         (the inner engine of the mixed-precision solver)."""
         if self.precision == "f32":
             return self
-        if self.precision != "df64":
-            raise NotImplementedError(
-                "as_f32 for sharded f64 operators: rebuild with df64")
+        key = (f"f32@{self.precision}", "xla")
         out = ShardedDenseOperator(self.operand, self.n, self.n_padded,
                                    jnp.float32, "f32", self.engine,
                                    self.mesh, self.axis, self.comm)
-        out._mv_local = MATVEC[("f32@df64", self.engine)]
-        out._mv_cols = MATVEC_COLS[("f32@df64", self.engine)]
-        # GSPMD fallback path must also read the pair layout
+        out._mv_local = MATVEC[key]
+        out._mv_cols = MATVEC_COLS[key]
+        # the GSPMD fallback path must read the same layout
         from lam_tpu.solver.operators import _MATVEC_DOT
-        out._matvec_dot_fn = _MATVEC_DOT[("f32@df64", "xla")]
+        out._matvec_dot_fn = _MATVEC_DOT[key]
         return out

@@ -6,7 +6,7 @@ the operand-vector exchange per matvec moves O(N) values per device
 On a 2-D R×R process grid with A in (N/R, N/R) blocks the exchange is a
 single transpose ppermute of an N/R block plus a psum of an N/R block —
 O(N/R) = O(N/sqrt(G)) per chip per iteration. That asymptotic is what
-makes big meshes (v5p pods) scale; the reference corpus's stress test
+makes big meshes scale; the reference corpus's stress test
 (N=560000 on 64 GPUs) is exactly the regime where 1-D row sharding's
 O(N) exchange dominates.
 
@@ -37,6 +37,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lam_tpu.parallel.pcg import (
+    ShardedDenseOperator,
     _make_local_cg,
     _make_local_ir,
     _make_local_pcg,
@@ -165,8 +166,7 @@ def _build_2d_chain(matvec_local, mesh, is_pair, repeats):
     """`repeats` back-to-back transpose-ppermute matvecs in ONE device
     program — the 2-D twin of LinearOperator.matvec_chain, so the CSV
     avg_gemv column times the REAL solve matvec (ppermute + local gemv
-    + psum), not the generic GSPMD matmul the base class would time
-    (round-3 fix; VERDICT.md weak item 3)."""
+    + psum), not the generic GSPMD matmul the base class would time."""
     r = mesh.shape[ROWS]
     apply_fn = _make_apply2d(matvec_local, r)
 
@@ -201,14 +201,8 @@ class Sharded2DOperator(LinearOperator):
         self._mv_block = MATVEC[(precision, "xla")]
 
     @staticmethod
-    def block_padded_size(n, mesh, engine):
-        r = mesh.shape[ROWS]
-        if engine == "pallas":
-            from lam_tpu.ops.gemv import TILE_K, TILE_M
-            mult = r * max(TILE_K, TILE_M)
-        else:
-            mult = r
-        return padded_size(n, mult)
+    def block_padded_size(n, mesh):
+        return padded_size(n, mesh.shape[ROWS])
 
     @staticmethod
     def from_block_fn(block_fn, n, mesh=None, precision="auto",
@@ -217,16 +211,9 @@ class Sharded2DOperator(LinearOperator):
         UNPADDED matrix (the 2-D analog of the per-rank MPI-IO read)."""
         if mesh is None:
             mesh = make_mesh2d()
-        if precision == "auto":
-            precision = "df64" if jax.default_backend() == "tpu" else "f64"
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if engine == "pallas_symm":
-            engine = "pallas"  # off-diagonal blocks are not symmetric
-        if precision == "f64" and engine == "pallas":
-            engine = "xla"
+        precision, engine = ShardedDenseOperator._resolve(precision, engine)
 
-        n_p = Sharded2DOperator.block_padded_size(n, mesh, engine)
+        n_p = Sharded2DOperator.block_padded_size(n, mesh)
         a_sharding = NamedSharding(mesh, P(ROWS, COLS))
 
         def padded_block(r0, c0, h, w):
@@ -295,33 +282,21 @@ class Sharded2DOperator(LinearOperator):
                              engine="auto"):
         """Gen-mode tridiagonal built ON DEVICE for the 2-D grid: the
         (n_p, n_p) hi plane is one fused elementwise program that XLA
-        writes shard-by-shard into each owner's HBM (out_shardings) and
-        the lo plane is exact zeros — no host build or transfer, the
-        same elimination the 1-D backends got in round 2 (round-3 fix;
-        VERDICT.md weak item 3)."""
+        writes shard-by-shard into each owner's memory (out_shardings),
+        in the storage precision (the df64 pair's lo plane is exact
+        zeros) — no host build or transfer."""
         from lam_tpu import generate as gen
         if mesh is None:
             mesh = make_mesh2d()
-        if precision == "auto":
-            precision = "df64" if jax.default_backend() == "tpu" else "f64"
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if engine == "pallas_symm":
-            engine = "pallas"  # off-diagonal blocks are not symmetric
-        if precision == "f64" and engine == "pallas":
-            engine = "xla"
-        n_p = Sharded2DOperator.block_padded_size(n, mesh, engine)
+        precision, engine = ShardedDenseOperator._resolve(precision, engine)
+        n_p = Sharded2DOperator.block_padded_size(n, mesh)
         a_sharding = NamedSharding(mesh, P(ROWS, COLS))
-        hi = jax.jit(gen._tridiag_hi_device_impl, static_argnums=(0, 1),
-                     out_shardings=a_sharding)(n, n_p)
-        if precision == "f32":
-            return Sharded2DOperator(hi, n, n_p, jnp.float32, "f32",
+        dtype = "float64" if precision == "f64" else "float32"
+        hi = jax.jit(gen._tridiag_hi_device_impl, static_argnums=(0, 1, 2),
+                     out_shardings=a_sharding)(n, n_p, dtype)
+        if precision in ("f32", "f64"):
+            return Sharded2DOperator(hi, n, n_p, hi.dtype, precision,
                                      engine, mesh)
-        if precision == "f64":
-            operand = jax.jit(lambda h: h.astype(jnp.float64),
-                              out_shardings=a_sharding)(hi)
-            return Sharded2DOperator(operand, n, n_p, jnp.float64,
-                                     "f64", engine, mesh)
         lo = jax.jit(lambda: jnp.zeros((n_p, n_p), jnp.float32),
                      out_shardings=a_sharding)()
         return Sharded2DOperator((hi, lo), n, n_p, jnp.float64, "df64",
@@ -438,13 +413,11 @@ class Sharded2DOperator(LinearOperator):
     def as_f32(self):
         if self.precision == "f32":
             return self
-        if self.precision != "df64":
-            raise NotImplementedError(
-                "as_f32 for 2-D f64 operators: rebuild with df64")
+        key = (f"f32@{self.precision}", "xla")
         out = Sharded2DOperator(self.operand, self.n, self.n_padded,
                                 jnp.float32, "f32", self.engine,
                                 self.mesh)
-        out._mv_local = MATVEC[("f32@df64", self.engine)]
+        out._mv_local = MATVEC[key]
         from lam_tpu.solver.operators import _MATVEC_DOT
-        out._matvec_dot_fn = _MATVEC_DOT[("f32@df64", "xla")]
+        out._matvec_dot_fn = _MATVEC_DOT[key]
         return out

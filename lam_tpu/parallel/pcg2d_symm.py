@@ -1,13 +1,11 @@
 """SYMMETRIC 2-D sharded CG: half the storage AND O(N/R) collectives.
 
-The two round-2/3 mesh programs each cover one axis of the design
-space: the band-pair symmetric operator (lam_tpu/parallel/pcg_symm.py)
-halves HBM capacity+reads but psums a full N-vector per iteration
-(payload O(N) per chip, device-count-independent); the 2-D SUMMA grid
+Two other mesh programs each cover one axis of the design space: the
+band-pair symmetric operator (lam_tpu/parallel/pcg_symm.py) halves
+storage and reads but psums a full N-vector per iteration (payload O(N)
+per device, device-count-independent); the 2-D SUMMA grid
 (lam_tpu/parallel/pcg2d.py) exchanges only O(N/R) blocks but streams
-all N^2 matrix elements. This module is the composition — the missing
-corner the round-2 judge flagged ("no symm/triangle variant on the 2-D
-grid", VERDICT.md weak item 3):
+all N^2 matrix elements. This module is the composition:
 
   * mesh: Mesh(devices[:R*R].reshape(R, R), ('rows', 'cols')); vectors
     P('rows') (replicated over cols), exactly as pcg2d.
@@ -22,8 +20,8 @@ grid", VERDICT.md weak item 3):
         balanced by construction: every chip owns ~m^2/2 elements.
   * matvec: ONE transpose ppermute delivers p-block j to chip (i, j)
     (as pcg2d); each off-diagonal chip then computes BOTH products of
-    its half-slab S in one HBM pass (ops/gemv.py dual kernels):
-    direct S @ p_j -> rows of y_i, transpose S^T @ p_i[half] -> y_j.
+    its half-slab S: direct S @ p_j -> rows of y_i, transpose
+    S^T @ p_i[half] -> y_j.
     The transpose partial belongs to the MIRROR chip's grid row, so a
     second transpose ppermute carries it back; a psum over 'cols'
     completes y. Per-iteration exchange: 2 ppermutes + 1 psum of
@@ -48,6 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from lam_tpu.ops import gemv
 from lam_tpu.parallel.pcg import (
     _make_local_cg,
     _make_local_ir,
@@ -56,8 +55,7 @@ from lam_tpu.parallel.pcg import (
 )
 from lam_tpu.parallel.pcg2d import AXES, COLS, ROWS, _transpose_perm, \
     make_mesh2d
-from lam_tpu.parallel.pcg_symm import _packed_mv_jnp
-from lam_tpu.precision import split_f64, join_f64
+from lam_tpu.parallel.pcg_symm import _rebuild64
 from lam_tpu.solver.cg import CGResult
 from lam_tpu.solver.operators import (
     LinearOperator,
@@ -74,18 +72,17 @@ def sym2d_padded_size(n, r, tb):
 
 
 def _geometry(n, mesh, tb):
-    from lam_tpu.ops.gemv import SYMM_TB, tri_tile_count
     from lam_tpu.parallel.pcg_symm import _validate_tb
     if mesh is None:
         mesh = make_mesh2d()
     if tb is None:
-        tb = SYMM_TB
+        tb = gemv.SYMM_TB
     _validate_tb(tb)
     r = mesh.shape[ROWS]
     n_p = sym2d_padded_size(n, r, tb)
     m = n_p // r
     c = m // tb
-    T = tri_tile_count(c)
+    T = gemv.tri_tile_count(c)
     sharding = NamedSharding(mesh, P(ROWS, COLS))
     return mesh, tb, r, n_p, m, c, T, sharding
 
@@ -96,8 +93,15 @@ def _scatter_half(d, m, top):
     return jnp.concatenate([d, z] if top else [z, d])
 
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def _rect_tiles_dense(buf, c2, c, tb, dtype):
-    """Packed half-slab -> dense (m/2, m) (off-TPU fallback only)."""
+    """Packed half-slab -> dense (m/2, m), for XLA's product."""
+    if buf.shape[0] < c2 * c * tb:
+        raise ValueError(f"packed buffer has {buf.shape[0] // tb} tiles, "
+                         f"the ({c2 * tb}, {c * tb}) half-slab needs "
+                         f"{c2 * c}")
     return (buf[: c2 * c * tb].reshape(c2, c, tb, tb).astype(dtype)
             .transpose(0, 2, 1, 3).reshape(c2 * tb, c * tb))
 
@@ -142,233 +146,74 @@ def _route_mv_pair(m, diag_mv, dual_mv, p_own, p_recv):
 def _make_mv_pair(r, m, tb, which, storage="df64"):
     """Per-chip matvec: (operand, p_own, p_recv) ->
     (own_partial (m,), mirror_payload (m,)). Routing lives in
-    _route_mv_pair; only the per-storage tile math is defined here."""
-    from lam_tpu.ops import gemv
+    _route_mv_pair; only the per-storage tile math is defined here.
 
+    Storages: 'df64' — (hi, lo) f32 planes (lo may be ONE broadcast
+    zero tile, gen mode); 'dfq' — (hi, loq, sc, dh, dl), int16 lo
+    against per-tile power-of-two scales; 'fq' — (q1, q2, q3, s1, s2,
+    s3, dh, dl), the three-int16 cascade. The quantized storages carry
+    the matrix diagonal as a P(ROWS) df64 pair (dh, dl), added by the
+    diagonal chips. which='f32' is the inner view: the diagonal chips
+    run the triangle-walk kernel over their packed triangle (the 2-byte
+    q1 plane for fq), the off-diagonal chips an XLA product of their
+    half-slab. which='acc' rebuilds the tiles in f64 (exactly) and runs
+    both in native f64 under XLA."""
     c = m // tb
     c2 = c // 2
+    T = (c * (c + 1)) // 2
     it_np, kt_np = gemv._symm_tables(c)
     it_c, kt_c = jnp.asarray(it_np), jnp.asarray(kt_np)
-    use_pallas = jax.default_backend() == "tpu"
 
-    if storage == "dfq":
-        return _make_mv_pair_dfq(r, m, tb, which, it_c, kt_c,
-                                 use_pallas)
-    if storage == "fq":
-        return _make_mv_pair_fq(r, m, tb, which, it_c, kt_c,
-                                use_pallas)
+    def f32_view(operand):
+        if storage == "fq":
+            return operand[0], operand[3][:, 0], operand[6]
+        if storage == "dfq":
+            return operand[0], None, operand[3]
+        return operand[0], None, None
 
-    def mv_pair(operand, p_own, p_recv):
+    def tiles64(operand):
+        f64 = jnp.float64
+        if storage == "fq":
+            q1, q2, q3, s1, s2, s3, dh, dl = operand
+            tiles = _rebuild64((q1, q2, q3),
+                               (s1[:, 0], s2[:, 0], s3[:, 0]), T, tb)
+            return tiles, dh.astype(f64) + dl.astype(f64)
+        if storage == "dfq":
+            hi, loq, sc, dh, dl = operand
+            tiles = (hi[:T * tb].astype(f64)
+                     + gemv.dequantize_tiles(loq, sc[:, 0], T, f64))
+            return tiles, dh.astype(f64) + dl.astype(f64)
         hi, lo = operand
-
-        if which == "f32":
-            if use_pallas:
-                def diag_mv(p):
-                    return gemv.gemv_f32_symm(hi, p, packed=True)
-
-                def dual_mv(pf, qh):
-                    return gemv.gemv_f32_dual(hi, pf, qh)
-            else:
-                zt = jnp.zeros((tb, tb), jnp.float32)
-
-                def diag_mv(p):
-                    return _packed_mv_jnp(hi, zt, it_c, kt_c, p)
-
-                def dual_mv(pf, qh):
-                    s = _rect_tiles_dense(hi, c2, c, tb, pf.dtype)
-                    return s @ pf, s.T @ qh
-        else:  # accurate df64
-            if use_pallas:
-                def diag_mv(p):
-                    ph, plo = split_f64(p)
-                    yh, yl = gemv.gemv_df64_symm(hi, lo, ph, plo,
-                                                 packed=True)
-                    return join_f64(yh, yl)
-
-                def dual_mv(pf, qhalf):
-                    ph, plo = split_f64(pf)
-                    qh, ql = split_f64(qhalf)
-                    dh, dl, th, tl = gemv.gemv_df64_dual(
-                        hi, lo, ph, plo, qh, ql)
-                    return join_f64(dh, dl), join_f64(th, tl)
-            else:
-                # off-TPU: genuine-f64 XLA math (interpret-mode f32
-                # compensation is defeated by excess precision — same
-                # policy as pcg_symm._make_mv_acc)
-                # lo may be a single broadcast tile (zeros, f32
-                # storage) rather than a full plane; dense64 only adds
-                # it in the full-plane case
-                lo_is_plane = lo.shape != (tb, tb)
-
-                def diag_mv(p):
-                    return _packed_mv_jnp(hi, lo, it_c, kt_c, p)
-
-                def dual_mv(pf, qh):
-                    s = _rect_tiles_dense(hi, c2, c, tb, jnp.float64)
-                    if lo_is_plane:
-                        s = s + _rect_tiles_dense(lo, c2, c, tb,
-                                                  jnp.float64)
-                    return s @ pf, s.T @ qh
-
-        return _route_mv_pair(m, diag_mv, dual_mv, p_own, p_recv)
-
-    return mv_pair
-
-
-def _make_mv_pair_dfq(r, m, tb, which, it_c, kt_c, use_pallas):
-    """dfq storage: operand = (hi, loq, sc, dh, dl) — f32 hi + int16 lo
-    tiles (per-tile power-of-two scales) on every chip, the matrix
-    diagonal extracted to a P(ROWS) df64 pair added by the diagonal
-    chips (off-diagonal blocks carry no matrix diagonal)."""
-    from lam_tpu.ops import gemv
-    from lam_tpu.precision import df_mul, fast_two_sum, two_sum
-
-    c = m // tb
-    c2 = c // 2
-    T = (c * (c + 1)) // 2
+        tiles = hi[:T * tb].astype(f64)
+        if lo.shape[0] == tb:                  # broadcast zero tile
+            tiles = tiles + jnp.tile(lo.astype(f64), (T, 1))
+        else:
+            tiles = tiles + lo[:T * tb].astype(f64)
+        return tiles, None
 
     def mv_pair(operand, p_own, p_recv):
-        hi, loq, sc, dh, dl = operand
-        sc_f = sc[:, 0]
-
         if which == "f32":
-            if use_pallas:
-                def diag_mv(p):
-                    return gemv.gemv_f32_symm(hi, p, packed=True) \
-                        + dh * p
+            buf, scales, diag = f32_view(operand)
+            rect = (buf if scales is None
+                    else gemv.dequantize_tiles(buf, scales, T, jnp.float32))
 
-                def dual_mv(pf, qh):
-                    return gemv.gemv_f32_dual(hi, pf, qh)
-            else:
-                zt = jnp.zeros((tb, tb), jnp.float32)
+            def diag_mv(p):
+                y = gemv.tri_walk(buf, p, scales)
+                return y if diag is None else y + diag * p
+        else:
+            rect, diag = tiles64(operand)
 
-                def diag_mv(p):
-                    return _packed_mv_jnp(hi, zt, it_c, kt_c, p) \
-                        + dh * p
+            def diag_mv(p):
+                direct, trans = gemv.tri_walk_xla(rect, p, it_c, kt_c)
+                yd, yt = gemv.fold_partials(direct, trans, it_c, kt_c, c,
+                                            c)
+                y = yd + yt
+                return y if diag is None else y + diag * p
 
-                def dual_mv(pf, qh):
-                    sdn = _rect_tiles_dense(hi, c2, c, tb, pf.dtype)
-                    return sdn @ pf, sdn.T @ qh
-        else:  # accurate dfq
-            if use_pallas:
-                def diag_mv(p):
-                    ph, plo = split_f64(p)
-                    yh, yl = gemv.gemv_dfq_symm(hi, loq, sc_f, ph, plo)
-                    th, tl = df_mul((dh, dl), (ph, plo))
-                    s_, e = two_sum(yh, th)
-                    zh, zl = fast_two_sum(s_, yl + tl + e)
-                    return join_f64(zh, zl)
-
-                def dual_mv(pf, qhalf):
-                    ph, plo = split_f64(pf)
-                    qh, ql = split_f64(qhalf)
-                    dh_, dl_, th, tl = gemv.gemv_dfq_dual(
-                        hi, loq, sc_f, ph, plo, qh, ql)
-                    return join_f64(dh_, dl_), join_f64(th, tl)
-            else:
-                # off-TPU: dequantize + genuine-f64 XLA (same policy as
-                # the df64 branch)
-                def lo_deq():
-                    return (loq.reshape(T, tb, tb).astype(jnp.float32)
-                            * sc_f[:, None, None]).reshape(T * tb, tb)
-
-                def diag_mv(p):
-                    y = _packed_mv_jnp(hi, lo_deq(), it_c, kt_c, p)
-                    d = dh.astype(p.dtype) + dl.astype(p.dtype)
-                    return y + d * p
-
-                def dual_mv(pf, qh):
-                    sdn = (_rect_tiles_dense(hi, c2, c, tb,
-                                             jnp.float64)
-                           + _rect_tiles_dense(lo_deq(), c2, c, tb,
-                                               jnp.float64))
-                    return sdn @ pf, sdn.T @ qh
-
-        return _route_mv_pair(m, diag_mv, dual_mv, p_own, p_recv)
-
-    return mv_pair
-
-
-def _make_mv_pair_fq(r, m, tb, which, it_c, kt_c, use_pallas):
-    """fq storage (round 3b): operand = (q1, q2, q3, s1, s2, s3, dh,
-    dl) — the three-int16 cascade on every chip (6 B/element stored
-    once across the grid), the matrix diagonal as a P(ROWS) df64 pair.
-    The f32 view reads ONLY the 2-byte q1 plane (gemv_q16_symm /
-    gemv_q16_dual)."""
-    from lam_tpu.ops import gemv
-    from lam_tpu.precision import df_mul, fast_two_sum, two_sum
-
-    c = m // tb
-    c2 = c // 2
-    T = (c * (c + 1)) // 2
-
-    def mv_pair(operand, p_own, p_recv):
-        q1, q2, q3, s1, s2, s3, dh, dl = operand
-        s1f, s2f, s3f = s1[:, 0], s2[:, 0], s3[:, 0]
-
-        def rec_f32():
-            # q1 plane dequantized (the inner-view operator) — off-TPU
-            return (q1.reshape(T, tb, tb).astype(jnp.float32)
-                    * s1f[:, None, None]).reshape(T * tb, tb)
-
-        if which == "f32":
-            if use_pallas:
-                def diag_mv(p):
-                    return gemv.gemv_q16_symm(q1, s1f, p) + dh * p
-
-                def dual_mv(pf, qh):
-                    return gemv.gemv_q16_dual(q1, s1f, pf, qh)
-            else:
-                zt = jnp.zeros((tb, tb), jnp.float32)
-
-                def diag_mv(p):
-                    return _packed_mv_jnp(rec_f32(), zt, it_c, kt_c,
-                                          p) + dh * p
-
-                def dual_mv(pf, qh):
-                    sdn = _rect_tiles_dense(rec_f32(), c2, c, tb,
-                                            pf.dtype)
-                    return sdn @ pf, sdn.T @ qh
-        else:  # accurate fq
-            if use_pallas:
-                def diag_mv(p):
-                    ph, plo = split_f64(p)
-                    yh, yl = gemv.gemv_fq_symm(q1, q2, q3, s1f, s2f,
-                                               s3f, ph, plo)
-                    th, tl = df_mul((dh, dl), (ph, plo))
-                    s_, e = two_sum(yh, th)
-                    zh, zl = fast_two_sum(s_, yl + tl + e)
-                    return join_f64(zh, zl)
-
-                def dual_mv(pf, qhalf):
-                    ph, plo = split_f64(pf)
-                    qh, ql = split_f64(qhalf)
-                    dh_, dl_, th, tl = gemv.gemv_fq_dual(
-                        q1, q2, q3, s1f, s2f, s3f, ph, plo, qh, ql)
-                    return join_f64(dh_, dl_), join_f64(th, tl)
-            else:
-                # off-TPU: dequantize the cascade to genuine f64 (exact
-                # per plane) and run XLA math — same policy as dfq.
-                # a (tb, tb) residual plane is ONE broadcast tile of
-                # exact zeros (gen mode, from_gen_fq) — skip it
-                def rec64():
-                    return sum(
-                        (q.reshape(T, tb, tb).astype(jnp.float64)
-                         * sf.astype(jnp.float64)[:, None, None]
-                         ).reshape(T * tb, tb)
-                        for q, sf in ((q1, s1f), (q2, s2f), (q3, s3f))
-                        if q.shape == (T * tb, tb))
-
-                def diag_mv(p):
-                    zt64 = jnp.zeros((tb, tb), jnp.float64)
-                    y = _packed_mv_jnp(rec64(), zt64, it_c, kt_c, p)
-                    d = dh.astype(p.dtype) + dl.astype(p.dtype)
-                    return y + d * p
-
-                def dual_mv(pf, qh):
-                    sdn = _rect_tiles_dense(rec64(), c2, c, tb,
-                                            jnp.float64)
-                    return sdn @ pf, sdn.T @ qh
+        def dual_mv(pf, qh):
+            sdn = _rect_tiles_dense(rect, c2, c, tb, pf.dtype)
+            return (jnp.matmul(sdn, pf, precision=_HIGHEST),
+                    jnp.matmul(sdn.T, qh, precision=_HIGHEST))
 
         return _route_mv_pair(m, diag_mv, dual_mv, p_own, p_recv)
 
@@ -588,7 +433,7 @@ class Symm2DOperator(LinearOperator):
         QUANT_LAYOUT in solver/operators.py.
 
         pack_cache_src: source matrix file path; enables the per-shard
-        pack cache (round 4, VERDICT r3 item 3) with topology code "r"
+        pack cache with topology code "r"
         and shard index i*r+j — chip (i, j)'s pack is published to
         <src>.shardpack/<storage>.r<r>.s<i*r+j>."""
         from lam_tpu.solver import pack_cache as pc

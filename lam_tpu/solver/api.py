@@ -9,10 +9,12 @@ This class implements all six with the backend collapsed to a config:
     backend:   'local'   one device (reference CPU_OMP / GPU_CUDA)
                'sharded' row-sharded mesh (reference MultiGPUS_*/CPU_MPI)
                'auto'    sharded iff >1 device visible
-    precision: 'f64' | 'f32' | 'df64' | 'ir' | 'auto'
+    precision: 'f64' | 'f32' | 'df64' | 'ir' | 'irq' | 'irfq' | 'auto'
                (see lam_tpu/solver/operators.py; 'ir' = f32 iterations +
-               f64 iterative refinement, the fastest path to 1e-9)
-    engine:    'pallas' | 'xla' | 'auto'
+               f64 iterative refinement)
+    engine:    'xla' (full square) | 'pallas_symm_packed' (packed
+               lower triangle) | 'auto'
+'auto' resolves through the platform table (lam_tpu/platform.py).
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ import numpy as np
 
 from lam_tpu import generate as gen
 from lam_tpu import io as lio
+from lam_tpu import platform
 from lam_tpu.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
-from lam_tpu.solver.operators import DenseOperator
+from lam_tpu.solver.operators import DenseOperator, check_engine, resolve
+
+PACKED = "pallas_symm_packed"
 
 
 class ConjugateGradient:
@@ -35,6 +40,7 @@ class ConjugateGradient:
                  n_devices=None, mesh=None, comm="gather",
                  pack_cache=False, check_symmetric=False,
                  outer="device"):
+        check_engine(engine)
         if backend == "auto":
             n = n_devices or len(jax.devices())
             backend = "sharded" if n > 1 else "local"
@@ -60,7 +66,7 @@ class ConjugateGradient:
         self.comm = comm
         # pack_cache: publish/reuse packed quantized planes beside the
         # matrix file (solver/pack_cache.py) so dfq/fq RELOADS skip the
-        # CPU-bound quantization pass (~7x faster measured at N=70000)
+        # CPU-bound quantization pass
         self.pack_cache = pack_cache
         # check_symmetric: verify A v == A^T v on the file's memory map
         # before building any lower-triangle operator. The file fast
@@ -79,12 +85,17 @@ class ConjugateGradient:
     # -- internal ----------------------------------------------------------
 
     def _base_precision(self):
-        # 'ir' runs on a df64 base operator plus its f32 sibling;
+        # 'ir' refines f32 inner iterations against the platform's
+        # accurate precision (native f64). Packed triangle storage keeps
+        # that matrix as an f32 (hi, lo) pair instead (also for 'auto'),
+        # so the inner walk reads the hi plane; its accurate matvec
+        # still runs in f64.
         # 'irq' is the same refinement loop on the 6-byte quantized-lo
-        # storage ("dfq", lam_tpu/solver/operators.py) — the capacity
-        # form that fits N=70000 on one 16 GB chip.
-        if self.precision == "ir":
+        # storage ("dfq", lam_tpu/solver/operators.py).
+        if self.precision in ("ir", "auto") and self.engine == PACKED:
             return "df64"
+        if self.precision == "ir":
+            return platform.current().precision
         if self.precision == "irq":
             return "dfq"
         # 'irfq' refines on the fully-quantized storage ("fq"): same
@@ -122,14 +133,14 @@ class ConjugateGradient:
             base2d = self._base_precision()
             engine2d = self.engine
             if base2d in ("dfq", "fq") and engine2d == "auto":
-                engine2d = "pallas_symm_packed"
-            if engine2d in ("pallas_symm", "pallas_symm_packed"):
+                engine2d = PACKED
+            if engine2d == PACKED:
                 # symmetric 2-D grid: each element stored ONCE across
                 # the mesh (packed triangle diagonal + half-slab
                 # mirrors) AND O(N/R) per-iteration exchange
                 # (lam_tpu/parallel/pcg2d_symm.py); dfq/irq quantizes
                 # the lo plane (6 B/element stored once mesh-wide)
-                if base2d not in ("auto", "df64", "dfq", "fq"):
+                if base2d not in ("df64", "dfq", "fq"):
                     raise ValueError(
                         f"--backend sharded2d --engine {engine2d} "
                         "supports precision df64/ir/dfq/irq/fq/irfq "
@@ -157,30 +168,28 @@ class ConjugateGradient:
             if base in ("dfq", "fq") and engine == "auto":
                 # quantized storage exists only as packed triangle
                 # tiles — route to the band-pair symmetric operator
-                engine = "pallas_symm_packed"
-            if engine in ("pallas_symm", "pallas_symm_packed"):
-                # band-pair triangle-walk operator: half the HBM bytes
-                # per sharded matvec (lam_tpu/parallel/pcg_symm.py);
-                # df64 accurate plane + f32 triangle inner (ir).
-                # _packed additionally stores ONLY the triangle tiles —
-                # half the HBM capacity per chip as well; dfq/irq
-                # quantizes the lo plane (6 B/element per shard)
-                if base not in ("auto", "df64", "dfq", "fq"):
+                engine = PACKED
+            if base in ("dfq", "fq") and engine != PACKED:
+                raise ValueError(
+                    "precision='dfq'/'irq'/'fq'/'irfq' implies packed "
+                    "storage; use engine='pallas_symm_packed' (or "
+                    "'auto')")
+            if engine == PACKED:
+                # band-pair triangle-walk operator: each device stores
+                # only its lower-triangle tiles, and every matrix byte
+                # is read once per matvec across the mesh
+                # (lam_tpu/parallel/pcg_symm.py); the f32 inner walk
+                # (ir/irfq) runs the kernel
+                if base not in ("df64", "dfq", "fq"):
                     raise ValueError(
                         f"--backend sharded --engine {engine} "
                         "supports precision df64/ir/dfq/irq/fq/irfq "
                         "(the df64 pair or a quantized form is the "
                         "storage layout)")
-                if base in ("dfq", "fq") and engine != "pallas_symm_packed":
-                    raise ValueError(
-                        "precision='dfq'/'irq'/'fq'/'irfq' implies "
-                        "packed storage; use "
-                        "engine='pallas_symm_packed' (or 'auto')")
                 from lam_tpu.parallel.pcg_symm import SymmShardedOperator
                 return SymmShardedOperator.from_row_block_fn(
                     row_block_fn, n, mesh=self._mesh_or_make(),
-                    packed=engine == "pallas_symm_packed",
-                    precision=base if base in ("dfq", "fq") else "df64",
+                    packed=True, precision=base,
                     pack_cache_src=pack_cache_src)
             from lam_tpu.parallel.pcg import ShardedDenseOperator
             return ShardedDenseOperator.from_row_block_fn(
@@ -212,8 +221,8 @@ class ConjugateGradient:
                     f"{filename}: matrix is not symmetric (A v != A^T v "
                     "on a random vector) — the lower-triangle engines "
                     "would silently solve with its mirrored lower half; "
-                    "use --engine pallas/xla with a full-square "
-                    "precision (f64/f32/df64) for non-symmetric input")
+                    "use --engine xla with a full-square precision "
+                    "(f64/f32/df64) for non-symmetric input")
             del a_map
         if (self.backend == "local" and self._base_precision() == "dfq"
                 and self.engine in ("auto", "pallas_symm_packed")):
@@ -237,13 +246,10 @@ class ConjugateGradient:
                     filename, pack_cache=self.pack_cache)
         elif (self.backend == "local"
                 and self._base_precision() in ("f32", "df64")
-                and (self.engine == "pallas_symm_packed"
-                     or (self.engine == "auto"
-                         and jax.default_backend() == "tpu"))):
-            # unquantized packed-triangle fast path (round 4): fused
+                and self.engine == PACKED):
+            # unquantized packed-triangle fast path: fused
             # lower-triangle read + f32/(hi,lo) convert, cacheable.
-            # Same engine from_dense's auto would pick on TPU, but
-            # symmetry is trusted (CG's contract) instead of verified —
+            # Symmetry is trusted (CG's contract) instead of verified —
             # the check costs two streaming passes over a multi-GB file
             ctor = (DenseOperator.from_file_f32
                     if self._base_precision() == "f32"
@@ -312,8 +318,6 @@ class ConjugateGradient:
         padded=True builds over the Q16_P-padded walk tables (the fq
         layout): the inert (0, 1) pad entries match nothing in the
         tridiagonal scatter, so the pad tiles come out all-zero."""
-        import jax.numpy as jnp
-
         from lam_tpu.ops.gemv import (SYMM_TB, _symm_tables,
                                       _symm_tables_padded)
         from lam_tpu.solver.operators import padded_size
@@ -328,94 +332,71 @@ class ConjugateGradient:
         return plane, tb, n_p
 
     def _generate_fast(self, rows):
-        """df64 plane fast path for the gen-mode tridiagonal on TPU:
-        entries {0,1,2} are exact in f32, so build the hi plane AND the
-        all-zero lo plane entirely ON DEVICE — no host build, no
-        host->device matrix transfer at all (both dominated gen-mode
-        load_s, results/MERGE_TPU_GEN.txt). For the sharded backends
-        XLA writes each shard directly into its owner's HBM
-        (out_shardings) — the generation analog of the reference's
-        per-rank fill (ConjugateGradient_CPU_MPI_OMP.hpp:237-247)."""
-        if jax.default_backend() != "tpu":
-            return None
-        if (self.backend == "local" and self._base_precision() == "fq"
-                and self.engine in ("auto", "pallas_symm_packed")):
-            # fq gen: device-built quantization-EXACT q1 plane +
-            # broadcast zero residual planes (2 B/element; round-3
-            # closure of the "gen-mode fq builds on the host" gap) —
-            # irfq gen probes run beyond the 4 B/elem f32 gen frontier
-            from lam_tpu.solver.operators import DenseOperator
-            q1, _, n_p = self._packed_gen_plane(
-                rows, gen._tridiag_q1_packed_impl, padded=True)
-            return DenseOperator.from_gen_fq(q1, rows, n_p)
-        if (self.backend == "sharded" and self._base_precision() == "fq"
-                and self.engine in ("auto", "pallas_symm_packed")):
-            # sharded twin of the branch above: device-built band-pair
-            # fq (2 B/element across the mesh, no host matrix)
-            from lam_tpu.parallel.pcg_symm import SymmShardedOperator
-            return SymmShardedOperator.from_gen_fq(
-                rows, mesh=self._mesh_or_make())
-        if (self.backend == "sharded2d"
-                and self._base_precision() == "fq"
-                and self.engine in ("auto", "pallas_symm",
-                                    "pallas_symm_packed")):
-            # 2-D grid twin: device-built q1 plane stored once across
-            # the grid + broadcast-zero residual tiles (closes the
-            # round-3 "gen fq on the 2-D grid still host-built" note)
-            from lam_tpu.parallel.pcg2d_symm import Symm2DOperator
+        """Gen-mode tridiagonal built ON DEVICE in its storage layout:
+        entries {0,1,2} are exact in every storage precision (the df64
+        pair is (hi, 0); the fq q1 plane is quantization-exact), so no
+        host build and no host->device matrix transfer. For the
+        sharded backends XLA writes each shard directly into its
+        owner's memory (out_shardings) — the generation analog of the
+        reference's per-rank fill
+        (ConjugateGradient_CPU_MPI_OMP.hpp:237-247). Returns None where
+        the matrix is built on the host instead."""
+        from lam_tpu.parallel.pcg import ShardedDenseOperator
+        from lam_tpu.parallel.pcg2d import Sharded2DOperator
+        from lam_tpu.parallel.pcg2d_symm import Symm2DOperator
+        from lam_tpu.parallel.pcg_symm import SymmShardedOperator
+
+        base, engine = resolve(self._base_precision(), self.engine)
+        if base in ("dfq", "fq") and self.engine == "auto":
+            engine = PACKED
+        if base == "fq" and engine == PACKED:
+            # device-built quantization-EXACT q1 plane + broadcast zero
+            # residual planes: 2 B/element
+            if self.backend == "local":
+                q1, _, n_p = self._packed_gen_plane(
+                    rows, gen._tridiag_q1_packed_impl, padded=True)
+                return DenseOperator.from_gen_fq(q1, rows, n_p)
+            if self.backend == "sharded":
+                return SymmShardedOperator.from_gen_fq(
+                    rows, mesh=self._mesh_or_make())
             return Symm2DOperator.from_gen_fq(
                 rows, mesh=self._mesh2d_or_make())
-        if self._base_precision() not in ("auto", "df64", "f32"):
+        if base not in ("f64", "f32", "df64"):
             return None
-        if self._base_precision() == "f32":
-            # f32 gen: the tridiagonal is exact in f32, so the packed
-            # hi plane IS the matrix — device-built, no host transfer
-            # (the host fallback cost 470 s at N=40000 vs ~2 s here)
-            if self.backend != "local" or self.engine not in (
-                    "auto", "pallas_symm_packed"):
-                return None
-            from lam_tpu.solver.operators import DenseOperator
-            hi, _, n_p = self._packed_gen_plane(
-                rows, gen._tridiag_hi_packed_impl)
-            return DenseOperator.from_packed_f32(hi, rows, n_p)
-        if self.backend == "sharded2d":
-            if self.engine in ("pallas_symm", "pallas_symm_packed"):
-                from lam_tpu.parallel.pcg2d_symm import Symm2DOperator
-                return Symm2DOperator.from_gen_tridiagonal(
-                    rows, mesh=self._mesh2d_or_make())
-            from lam_tpu.parallel.pcg2d import Sharded2DOperator
-            return Sharded2DOperator.from_gen_tridiagonal(
-                rows, mesh=self._mesh2d_or_make(), engine=self.engine)
-        if self.backend == "sharded":
-            if self.engine in ("pallas_symm", "pallas_symm_packed"):
-                from lam_tpu.parallel.pcg_symm import SymmShardedOperator
+        if engine == PACKED:
+            if self.backend == "local" and base == "f32":
+                # the packed f32 plane IS the matrix
+                hi, _, n_p = self._packed_gen_plane(
+                    rows, gen._tridiag_hi_packed_impl)
+                return DenseOperator.from_packed_f32(hi, rows, n_p)
+            if base != "df64":
+                return None   # the host build raises the usual error
+            if self.backend == "local":
+                # triangle tiles + ONE broadcast zero lo tile
+                hi, tb, n_p = self._packed_gen_plane(
+                    rows, gen._tridiag_hi_packed_impl)
+                lo = jnp.zeros((tb, tb), jnp.float32)
+                return DenseOperator.from_packed_planes(hi, lo, rows, n_p)
+            if self.backend == "sharded":
                 return SymmShardedOperator.from_gen_tridiagonal(
-                    rows, mesh=self._mesh_or_make(),
-                    packed=self.engine == "pallas_symm_packed")
-            from lam_tpu.parallel.pcg import ShardedDenseOperator
+                    rows, mesh=self._mesh_or_make(), packed=True)
+            return Symm2DOperator.from_gen_tridiagonal(
+                rows, mesh=self._mesh2d_or_make())
+        if self.backend == "sharded2d":
+            return Sharded2DOperator.from_gen_tridiagonal(
+                rows, mesh=self._mesh2d_or_make(), precision=base,
+                engine=engine)
+        if self.backend == "sharded":
             return ShardedDenseOperator.from_gen_tridiagonal(
-                rows, mesh=self._mesh_or_make(), engine=self.engine,
-                comm=self.comm)
-        if self.backend != "local":
-            return None
-        from lam_tpu.solver.operators import DenseOperator, padded_size
-        import jax.numpy as jnp
-        # symmetric by construction -> packed lower-triangle engine by
-        # default: triangle tiles only + ONE broadcast zero lo tile =
-        # a QUARTER of the full-square pair's HBM (entries {0,1,2} are
-        # exact in f32, so lo == 0 exactly)
-        engine = ("pallas_symm_packed" if self.engine == "auto"
-                  else self.engine)
-        if engine == "pallas_symm_packed":
-            hi, tb, n_p = self._packed_gen_plane(
-                rows, gen._tridiag_hi_packed_impl)
-            lo = jnp.zeros((tb, tb), jnp.float32)
-            return DenseOperator.from_packed_planes(hi, lo, rows, n_p)
-        n_p = padded_size(rows)
-        hi = gen.tridiagonal_hi_plane_device(rows, n_p)
-        lo = jnp.zeros((n_p, n_p), jnp.float32)  # exact: no f32 error
-        return DenseOperator.from_df64_planes(hi, lo, rows,
-                                              engine=engine)
+                rows, mesh=self._mesh_or_make(), precision=base,
+                engine=engine, comm=self.comm)
+        if base == "df64":
+            hi = gen.tridiagonal_hi_plane_device(rows)
+            lo = jnp.zeros((rows, rows), jnp.float32)  # exact: no f32 error
+            return DenseOperator.from_df64_planes(hi, lo, rows,
+                                                  engine=engine)
+        return DenseOperator.from_device(gen.tridiagonal_hi_plane_device(
+            rows, dtype="float64" if base == "f64" else "float32"), rows)
 
     def generate_rhs(self):
         """Gen-mode rhs of ones (ConjugateGradient_CPU_MPI_OMP.hpp:159-164)."""
@@ -441,7 +422,7 @@ class ConjugateGradient:
         def solver(iters, tol):
             return self._solve_once(iters, tol, preconditioner)
         if warmup:
-            # timed as init_s: the TPU-native analog of the reference's
+            # timed as init_s: the compiled-program analog of the reference's
             # NCCL communicator init (ncclCommInitRank, measured and
             # printed as the nccl_init_s CSV column,
             # ConjugateGradient_MultiGPUS_CUDA_NCCL.cu:306-334) is XLA
@@ -452,8 +433,8 @@ class ConjugateGradient:
             self.timings["init_s"] = time.perf_counter() - t_init
         t0 = time.perf_counter()
         result = solver(max_iters, rel_error)
-        # scalar readback: block_until_ready alone can be a no-op on
-        # remote-tunneled platforms, silently under-reporting the time
+        # scalar readback: the timed region ends when the result is on
+        # the host
         float(result.rel_residual)
         return self.record_result(result, time.perf_counter() - t0)
 

@@ -7,7 +7,7 @@ ConjugateGradient_GPU_CUDA.cu:226-325). Placement — single device vs. a
 sharded mesh — is the *operator's* concern (lam_tpu/solver/operators.py,
 lam_tpu/parallel/), not the loop's.
 
-TPU-native structure: the entire iteration runs inside `lax.while_loop`
+Device-resident structure: the entire iteration runs inside `lax.while_loop`
 under `jit`, so there are ZERO host round-trips until convergence — unlike
 the reference, which copies rr/bb device->host and re-launches kernels
 every iteration (ConjugateGradient_GPU_CUDA.cu:285-287).
@@ -45,8 +45,8 @@ class CGResult(NamedTuple):
 
 
 # Production inner-tolerance floors for the refinement loop, one per
-# inner-operator class (measured on the reference spectrum, N=4096;
-# results/ITER_RECOVERY_r05.log / FQ_FEASIBILITY_r03.log):
+# inner-operator class (iteration counts on the reference spectrum,
+# N=4096):
 #  * exact-f32 inner (ir/irq): flat 1e-5 — the recurrence stagnates
 #    near kappa*eps_f32 (~7e-5) anyway, tighter just burns iterations.
 #  * quantized inner (irfq): loose-early/tight-late SCHEDULE
@@ -166,7 +166,8 @@ def _cg_block_loop(matvec, operand, b, max_iters, rel_error):
 
     Solves A X = B for an (n, k) block of right-hand sides with ONE
     matrix pass per iteration — the matvec becomes an (n,n)@(n,k) matmul
-    that the MXU actually likes, and HBM traffic per system drops by k.
+    that the tensor cores take well, and matrix traffic per system drops
+    by k.
     Columns converge independently: converged columns freeze (alpha,
     beta masked to 0) while the rest continue. Surplus capability — the
     reference is strictly single-RHS.
@@ -242,7 +243,7 @@ def _cg_ir_loop(matvec_dot32, matvec_dot_acc, operand, b,
     cycle c uses entry min(c, len-1)). Loose-early/tight-late
     schedules recover a slice of irfq's iteration premium — measured
     -8 of the +21 inner iterations at the N=4096 reference spectrum
-    for (3e-2, 1e-2) vs flat 1e-2 (results/ITER_RECOVERY_r05.log).
+    for (3e-2, 1e-2) vs flat 1e-2.
     """
     dtype = b.dtype
     bb = jnp.vdot(b, b)
@@ -301,7 +302,7 @@ def _inv_diag_f32(op):
 
 def cg_solve_ir(op32, op_acc, b, *, max_iters=10000, rel_error=1e-9,
                 inner_floor=1e-5, max_cycles=6, preconditioner=None):
-    """Mixed-precision CG with iterative refinement (the fast TPU path).
+    """Mixed-precision CG with iterative refinement.
 
     Runs the CG iterations in f32 (half the HBM traffic of the
     df64/f64 matrix) and periodically restarts from the TRUE residual

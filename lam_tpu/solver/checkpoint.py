@@ -240,7 +240,7 @@ def cg_solve_resumable(op, b, *, max_iters=1000, rel_error=1e-9,
 
 # --- resumable mixed-precision (ir) solving --------------------------------
 #
-# Round-3 addition (VERDICT.md item 7): refinement-CYCLE boundaries are
+# Refinement-CYCLE boundaries are
 # natural restart points — the outer state is just (x, r, k, cycle) in
 # f64, and the f64 binary format round-trips bit-exactly, so a resumed
 # solve continues with the same per-cycle arithmetic as an uninterrupted

@@ -1,8 +1,8 @@
 """Numpy float64 reference CG: the correctness oracle.
 
 Library home of the single canonical oracle — consumed by the test
-suite, __graft_entry__.dryrun_multichip, and scripts/scaling_parity.py
-(one copy, so stopping-rule fixes cannot drift between checkers).
+suite and __graft_entry__.dryrun_multichip (one copy, so stopping-rule
+fixes cannot drift between checkers).
 
 Implements exactly the reference algorithm and stopping rule
 (ConjugateGradient_CPU_OMP.hpp:50-91): update order, convergence test

@@ -1,10 +1,10 @@
-// lam_native: threaded binary IO + generator kernels for LAM-TPU.
+// lam_native: threaded binary IO + generator kernels for lam_tpu.
 //
 // Native-code counterpart of the reference's C++ data plane: the MPI-IO
 // sharded matrix reads (ConjugateGradient_CPU_MPI_OMP.hpp:325-363, and the
 // pinned-buffer loads in ConjugateGradient_MultiGPUS_CUDA_MPI.cu:470-516)
-// and the gen-mode tridiagonal fill (CPU_MPI_OMP.hpp:237-247). On TPU the
-// host's job is feeding HBM: these routines stream row-blocks off the
+// and the gen-mode tridiagonal fill (CPU_MPI_OMP.hpp:237-247). The
+// host's job is feeding the device: these routines stream row-blocks off the
 // filesystem with per-thread pread() and convert f64 -> float-float
 // (hi, lo) planes in the same pass, so the host never materializes a
 // second copy of a multi-GB matrix.
@@ -187,8 +187,7 @@ static float ln_q_scale(float m) {
 // pairs of length n_pad. One fused pass — read, split, max, quantize —
 // and only the LOWER-TRIANGLE bytes are read (cols <= (i+1)*tb per tile
 // row): ~half the disk traffic and none of the numpy temporaries of the
-// Python pack (825 s -> see results/ for the measured native time at
-// N=70000). The reference's analog is the MPI-IO sharded load
+// Python pack. The reference's analog is the MPI-IO sharded load
 // (ConjugateGradient_CPU_MPI_OMP.hpp:325-363); quantization has no
 // reference analog (fp64-square storage throughout).
 int ln_pack_dfq(const char* path, uint64_t data_off, uint64_t n,
@@ -304,8 +303,8 @@ static float ln_q_scale_d(double m) {
 // output pointers; diagonal entries outside the range are untouched.
 // Python drives it chunk-by-chunk (the GIL drops across the ctypes
 // call) so quantization of chunk i+1 overlaps the device upload of
-// chunk i — the cold-path load-wall pipeline (solver/operators.py
-// round 5). ln_pack_fq == range(0, nblk) + the dh/dl memset.
+// chunk i — the cold-path load pipeline (solver/operators.py
+// _pack_fq_streamed). ln_pack_fq == range(0, nblk) + the dh/dl memset.
 int ln_pack_fq_range(const char* path, uint64_t data_off, uint64_t n,
                      uint64_t n_pad, uint64_t tb, uint64_t row0,
                      uint64_t row1, int16_t* q1, int16_t* q2,

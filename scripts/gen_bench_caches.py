@@ -1,22 +1,18 @@
-"""Build the bench.py system caches (io/bench/*.npy) for the round.
+"""Build the bench.py system caches (io/bench/*.npy).
 
-io/ is gitignored and does NOT survive between rounds — and round 5
-showed it can be wiped between SESSIONS of the same round (driver
-restart on a fresh host) — but bench.py (run by the driver at round
-end) needs the cached SPD systems: cold generation is single-core
-Householder work (~1 min at N=10000, ~6 min at 20000, ~25 min at
-40000, ~75 min at 70000) that would blow the driver's bench window.
-Run this early in every session, in the background:
+io/ is gitignored, and bench.py needs the cached SPD systems: cold
+generation is single-core Householder work whose cost grows as N^2
+(minutes at N=20000, over an hour at N=70000). Run this ahead of the
+bench, in the background:
 
     LAM_GEN_PREPACK=1 python scripts/gen_bench_caches.py &
 
 Sizes via LAM_GEN_SIZES (comma list; default = bench.py's sizes,
 LARGEST FIRST: an interrupted run then leaves the most expensive
-artifact cached — bench regenerates a missing N=10000 in ~1 min but a
-missing N=70000 in ~75). LAM_GEN_PREPACK=1 additionally publishes each
-size's fq pack cache right after its .npy lands (the full one-command
-session restore; prepack is minutes, scripts/prepack_bench_caches.py).
-Skips sizes already cached. Publishes atomically (bench.py contract).
+artifact cached). LAM_GEN_PREPACK=1 additionally publishes each size's
+fq pack cache right after its .npy lands
+(scripts/prepack_bench_caches.py). Skips sizes already cached.
+Publishes atomically (bench.py contract).
 """
 import os
 import sys

@@ -96,16 +96,19 @@ def test_clean_drops_projection_rows(tmp_path, capsys):
 
 
 def test_clean_weak_scalability_corpus_roundtrip(tmp_path):
-    """The shipped WEAK_SCALABILITY_TPU.txt round-trips through clean
-    with ONLY measured rows surviving (its devices>1 rows are marked
-    '# projected')."""
-    import os
-    import shutil
-    src = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "results",
-        "WEAK_SCALABILITY_TPU.txt")
-    work = tmp_path / "WEAK_SCALABILITY_TPU.txt"
-    shutil.copy(src, work)
+    """A weak-scalability study file in the reference's layout (comment
+    header, one measured devices=1 row per size, devices>1 rows marked
+    '# projected') round-trips through clean with ONLY measured rows
+    surviving."""
+    work = tmp_path / "WEAK_SCALABILITY.txt"
+    work.write_text(
+        "# The first column is the size of the matrix\n"
+        "# The second column is the number of devices\n"
+        "\n"
+        "20000,1,1,0.91,0.0020,0.0021,343,9.6e-10,0.72\n"
+        "28284,2,1,1.10,0.0021,0.0023,350,9.7e-10,0.80 # projected\n"
+        "40000,4,1,1.31,0.0022,0.0025,352,9.7e-10,0.88 # projected\n"
+        "40000,1,1,3.20,0.0080,0.0082,352,9.7e-10,2.90\n")
     best = tmp_path / "BEST"
     rc = clean.main([str(work), "-o", str(best)])
     assert rc == 0

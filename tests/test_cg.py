@@ -220,12 +220,12 @@ def test_block_cg_multiple_rhs():
 
 
 def test_cg_with_symmetric_engine():
-    """Full f32 solve through the lower-triangle kernel: the
-    ('f32','pallas_symm') MATVEC entry drives gemv_f32_symm directly."""
+    """Full f32 solve through the triangle-walk kernel: the
+    ('f32','pallas_symm_packed') MATVEC entry drives it directly."""
     a = gen.random_spd_matrix(96, seed=71)
     b = gen.random_rhs(96, seed=72)
     op = DenseOperator.from_dense(a, precision="f32",
-                                  engine="pallas_symm")
+                                  engine="pallas_symm_packed")
     res = cg_solve(op, b, max_iters=1000, rel_error=1e-4)
     assert bool(res.converged)
     x = np.asarray(res.x, np.float64)
@@ -233,13 +233,13 @@ def test_cg_with_symmetric_engine():
 
 
 def test_df64_solve_with_symmetric_engine():
-    """Plain df64 solve under engine='pallas_symm' routes through the
-    triangle-walk gemv_df64_symm (since round 2, ('df64','pallas_symm')
-    in operators.MATVEC) and must converge to a true 1e-9."""
+    """Plain df64 solve on packed storage routes through the f64
+    triangle walk (('df64','pallas_symm_packed') in operators.MATVEC)
+    and must converge to a true 1e-9."""
     a = gen.random_spd_matrix(96, seed=75)
     b = gen.random_rhs(96, seed=76)
     op = DenseOperator.from_dense(a, precision="df64",
-                                  engine="pallas_symm")
+                                  engine="pallas_symm_packed")
     res = cg_solve(op, b, max_iters=5000, rel_error=1e-9)
     assert bool(res.converged)
     x = np.asarray(res.x, np.float64)
@@ -247,13 +247,13 @@ def test_df64_solve_with_symmetric_engine():
 
 
 def test_ir_with_symmetric_engine():
-    """The ir inner loop routes through ('f32@df64','pallas_symm'), i.e.
-    gemv_f32_symm on the shared hi plane — the production fast path."""
+    """The ir inner loop routes through ('f32@df64','pallas_symm_packed'),
+    i.e. the triangle-walk kernel on the shared hi plane."""
     from lam_tpu import cg_solve_ir
     a = gen.random_spd_matrix(96, seed=73)
     b = gen.random_rhs(96, seed=74)
     op = DenseOperator.from_dense(a, precision="df64",
-                                  engine="pallas_symm")
+                                  engine="pallas_symm_packed")
     res = cg_solve_ir(op.as_f32(), op, b, max_iters=5000, rel_error=1e-9)
     assert bool(res.converged)
     x = np.asarray(res.x)
@@ -261,7 +261,7 @@ def test_ir_with_symmetric_engine():
 
 
 def test_block_cg_on_packed_and_dfq(monkeypatch):
-    """Round 3: block CG works on packed-triangle storage too — the
+    """Block CG works on packed-triangle storage too — the
     einsum triangle walk (_packed_block_walk) replaces the plain matmul
     the packed layout cannot express."""
     from lam_tpu.solver.cg import cg_solve_block

@@ -114,11 +114,12 @@ def test_cli_comm_ring_and_symm_engine(capsys):
                  "--precision", "f64"]) == 0
     row = capsys.readouterr().out.strip().split(",")
     assert row[0] == "96" and row[1] == "4"
-    # pallas_symm inner kernel end-to-end (interpret mode): precision
-    # ir routes the inner loop through gemv_f32_symm on the hi plane;
-    # plain df64 solves route through gemv_df64_symm (round 2)
+    # the triangle-walk kernel end-to-end (interpret mode): precision
+    # ir on packed storage routes the inner loop through the kernel on
+    # the hi plane
     assert main(["-s", "96", "-i", "10", "--backend", "local",
-                 "--engine", "pallas_symm", "--precision", "ir"]) == 0
+                 "--engine", "pallas_symm_packed", "--precision",
+                 "ir"]) == 0
     row = capsys.readouterr().out.strip().split(",")
     assert row[0] == "96" and int(row[6]) == 11
 
@@ -394,9 +395,8 @@ def test_cli_pack_cache_publishes_and_reuses(tmp_path, capsys):
 
 def test_cli_pack_cache_covers_plane_precisions(tmp_path, capsys):
     """--pack-cache (round 4) also serves the UNQUANTIZED f32/df64
-    packed-triangle loads — the host f64->f32 conversion dominated
-    measured f32 file loads (results/MERGE_TPU_FP.txt N=50000
-    load_s=719 s). Same contract as the irfq test: publish on first
+    packed-triangle loads, where the host f64->f32 conversion is the
+    load's main cost. Same contract as the irfq test: publish on first
     run, identical CSV row from the cache on the second."""
     import os
 

@@ -1,22 +1,18 @@
 """Quantized-lo packed storage ("dfq"): the 6-byte f64 element.
 
-Properties verifiable on the CPU suite: exact quantization bounds and
-reconstruction, bitwise kernel equivalence (dfq vs df64 on the
-reconstructed lo plane — both run the same interpret path), operator
-plumbing (diagonal extraction, as_f32 view identity, error paths), and
-end-to-end irq solves at CPU-reachable tolerance. The strict accuracy
-claims (1e-9 true residuals through iterative refinement) are hardware
-assertions in tests/test_tpu.py — XLA:CPU's excess precision breaks the
-compensated arithmetic the claims rest on (docs/REPORT.md §3).
+Exact quantization bounds and reconstruction, the accurate matvec
+(dequantize to f64, then the plain XLA walk) bitwise against the df64
+pair holding the reconstructed lo plane, operator plumbing (diagonal
+extraction, as_f32 view identity, error paths), and end-to-end irq
+solves to a true 1e-9 residual.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lam_tpu.ops.gemv import (SYMM_TB, gemv_df64_symm, gemv_dfq_symm,
-                              pack_tri_host, quantize_lo_tiles)
-from lam_tpu.solver.operators import DenseOperator, split_f64_host
+from lam_tpu.ops.gemv import SYMM_TB, pack_tri_host, quantize_lo_tiles
+from lam_tpu.solver.operators import MATVEC, DenseOperator, split_f64_host
 
 
 def _sym(n, seed, zero_diag=False):
@@ -53,8 +49,8 @@ def test_quantize_lo_tiles_bound_and_exact_reconstruction():
 
 
 def test_dfq_kernel_bitwise_matches_df64_on_reconstructed_lo():
-    # the in-kernel dequantization (int16 -> f32 * scale) must be exact;
-    # given the same effective lo plane, dfq and df64 walk identically
+    # the dequantization (int16 -> f32 * scale) must be exact; given
+    # the same effective lo plane, dfq and df64 walk identically
     tb = 256
     n = 1024
     a = _sym(n, 1, zero_diag=True)
@@ -65,13 +61,15 @@ def test_dfq_kernel_bitwise_matches_df64_on_reconstructed_lo():
     rec = q.astype(np.float32) * np.repeat(sc, tb)[:, None]
     rng = np.random.default_rng(2)
     p = rng.uniform(-1, 1, n)
-    ph, pl = (jnp.asarray(x) for x in split_f64_host(p))
-    yh_q, yl_q = gemv_dfq_symm(jnp.asarray(hip), jnp.asarray(q),
-                               jnp.asarray(sc), ph, pl)
-    yh_d, yl_d = gemv_df64_symm(jnp.asarray(hip), jnp.asarray(rec), ph,
-                                pl, packed=True)
-    np.testing.assert_array_equal(np.asarray(yh_q), np.asarray(yh_d))
-    np.testing.assert_array_equal(np.asarray(yl_q), np.asarray(yl_d))
+    zero = jnp.zeros((n,), jnp.float32)      # zero diagonal: dh = dl = 0
+    y_q = MATVEC[("dfq", "pallas_symm_packed")](
+        (jnp.asarray(hip), jnp.asarray(q), jnp.asarray(sc), zero, zero),
+        jnp.asarray(p))
+    y_d = MATVEC[("df64", "pallas_symm_packed")](
+        (jnp.asarray(hip), jnp.asarray(rec)), jnp.asarray(p))
+    np.testing.assert_array_equal(np.asarray(y_q), np.asarray(y_d))
+    assert np.linalg.norm(np.asarray(y_q) - a @ p) < 1e-10 * np.linalg.norm(
+        a @ p)
 
 
 def test_dfq_operator_matvec_and_diagonal():
@@ -90,8 +88,8 @@ def test_dfq_operator_matvec_and_diagonal():
     rng = np.random.default_rng(4)
     p = rng.uniform(-1, 1, n)
     y = np.asarray(op.extract_x(op.matvec(op.prepare_b(p))))
-    # CPU interpret arithmetic: quantization ~1e-12 + broken EFT ~1e-7
-    assert np.linalg.norm(y - a @ p) / np.linalg.norm(a @ p) < 1e-6
+    # quantized lo plane: ~2^-39 tile-relative, in an f64 walk
+    assert np.linalg.norm(y - a @ p) / np.linalg.norm(a @ p) < 1e-10
 
 
 def test_dfq_as_f32_shares_operand_and_adds_diagonal():
@@ -113,12 +111,10 @@ def test_irq_solve_end_to_end():
     n = 600
     a, b = _spd(n, 7)
     op = DenseOperator.from_dense(a, precision="dfq")
-    # 1e-6: reachable on the CPU interpret path (the 1e-9 claim is the
-    # hardware test); refinement must run and produce a REAL solution
-    res = cg_solve_ir(op.as_f32(), op, b, max_iters=5000, rel_error=1e-6)
+    res = cg_solve_ir(op.as_f32(), op, b, max_iters=5000, rel_error=1e-9)
     assert bool(res.converged)
     x = np.asarray(res.x)
-    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 1e-5
+    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 2e-9
 
 
 def test_irq_through_api_and_cli():
@@ -146,19 +142,19 @@ def test_irq_through_api_and_cli():
 def test_dfq_error_paths():
     a = _sym(512, 9)  # symmetric but indefinite: fine for matvec tests
     with pytest.raises(ValueError, match="not combinable"):
-        DenseOperator.from_dense(a, precision="dfq", engine="pallas")
+        DenseOperator.from_dense(a, precision="dfq", engine="xla")
     asym = np.triu(np.ones((512, 512)))
     with pytest.raises(ValueError, match="symmetric"):
         DenseOperator.from_dense(asym, precision="dfq")
-    # sharded dfq/irq is supported (round 3, band-pair quantized
-    # storage) — but only as packed triangle tiles; the slab engine
-    # has no quantized form and is rejected cleanly
+    # sharded dfq/irq is supported (band-pair quantized storage) — but
+    # only as packed triangle tiles; the full-row engine has no
+    # quantized form and is rejected cleanly
     from lam_tpu.solver.api import ConjugateGradient
     cg = ConjugateGradient(backend="sharded", precision="irq",
                            engine="pallas_symm_packed", n_devices=2)
     assert cg.generate_matrix(512)
     assert cg.op._storage == "dfq" and cg.op.precision == "dfq"
     bad = ConjugateGradient(backend="sharded", precision="irq",
-                            engine="pallas_symm", n_devices=2)
+                            engine="xla", n_devices=2)
     with pytest.raises(ValueError, match="packed"):
         bad.generate_matrix(512)

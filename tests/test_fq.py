@@ -1,13 +1,11 @@
 """Fully-quantized packed storage ("fq"/"irfq") — CPU suite.
 
 Covers the quantization cascade's mathematical guarantees (per-plane
-bound, exact power-of-two reconstruction), the q16 inner kernel against
-a dequantization oracle, operator plumbing (diagonal extraction, as_f32
-view identity, padding, block matvec, error paths), and end-to-end
-irfq solves at CPU-reachable tolerance. Strict accuracy claims (the
-~2^-48 storage bound delivering 1e-9 true residuals) are hardware
-assertions in tests/test_tpu.py — XLA:CPU's excess precision breaks the
-in-kernel two_sum rebuild of the (ah, al) pair (docs/REPORT.md §3).
+bound, exact power-of-two reconstruction), the int16 triangle walk (the
+kernel in interpret mode) against a dequantization oracle, operator
+plumbing (diagonal extraction, as_f32 view identity, padding, block
+matvec, error paths), and end-to-end irfq solves to a true 1e-9
+residual.
 
 The reference has no quantized storage anywhere — its backends stream
 8-byte fp64 for every element every matvec
@@ -18,8 +16,8 @@ at the N=70000 north-star scale (SURVEY.md §6).
 import numpy as np
 import pytest
 
-from lam_tpu.ops.gemv import (_symm_tables, gemv_q16_symm, pack_tri_host,
-                              quantize_fq_tiles)
+from lam_tpu.ops.gemv import (_symm_tables, pack_tri_host,
+                              quantize_fq_tiles, tri_walk)
 from lam_tpu.solver.operators import DenseOperator
 
 
@@ -79,7 +77,7 @@ def test_q16_kernel_matches_dequantization_oracle():
     q1, _, _, s1, _, _ = quantize_fq_tiles(packed, tb)
     rng = np.random.default_rng(2)
     p = rng.uniform(-1, 1, n).astype(np.float32)
-    y = np.asarray(gemv_q16_symm(q1, s1, p))
+    y = np.asarray(tri_walk(q1, p, scales=s1))
     it, kt = _symm_tables(nblk)
     aq = np.zeros((n, n))
     for t, (i, k) in enumerate(zip(it, kt)):
@@ -91,25 +89,12 @@ def test_q16_kernel_matches_dequantization_oracle():
     assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-5
 
 
-def test_q16_impl_auto_threshold(monkeypatch):
-    """The default 'auto' picks the MXU product engine only at
-    DMA-floor sizes (>= Q16_MXU_MIN_N); explicit env values win."""
-    from lam_tpu.ops import gemv
-    monkeypatch.setattr(gemv, "_Q16_IMPL", "auto")
-    assert gemv._q16_impl(gemv.Q16_MXU_MIN_N) == "mxu"
-    assert gemv._q16_impl(gemv.Q16_MXU_MIN_N - 1) == "vpu"
-    monkeypatch.setattr(gemv, "_Q16_IMPL", "vpu")
-    assert gemv._q16_impl(10 ** 6) == "vpu"
-    monkeypatch.setattr(gemv, "_Q16_IMPL", "mxu")
-    assert gemv._q16_impl(8) == "mxu"
-
-
-def test_q16_blocked_grid_matches_one_tile_grid():
-    """The Q16_P-blocked grid (padded plane, round 4) must agree with
-    the one-tile grid EXACTLY on integer data: with small-int tiles,
-    a power-of-two scale and small-int p, every product and partial
-    sum is exact in f32, so any summation-order difference between the
-    two grids would show up as a bit difference."""
+def test_q16_padded_plane_matches_unpadded():
+    """The Q16_P-padded plane (the fq storage format) must walk EXACTLY
+    like the unpadded one on integer data: with small-int tiles, a
+    power-of-two scale and small-int p, every product and partial sum
+    is exact in f32, so reading a pad tile would show up as a bit
+    difference."""
     from lam_tpu.ops.gemv import (Q16_P, padded_tri_tile_count,
                                   tri_tile_count)
     tb = 128
@@ -122,21 +107,21 @@ def test_q16_blocked_grid_matches_one_tile_grid():
     q1 = rng.integers(-3, 4, (T * tb, tb)).astype(np.int16)
     s1 = np.full((T,), 0.5, np.float32)          # power of two: exact
     p = rng.integers(-3, 4, n).astype(np.float32)
-    y_one = np.asarray(gemv_q16_symm(q1, s1, p))
+    y_one = np.asarray(tri_walk(q1, p, scales=s1))
     q1p = np.concatenate(
-        [q1, np.zeros(((tp - T) * tb, tb), np.int16)])
-    s1p = np.concatenate([s1, np.zeros((tp - T,), np.float32)])
-    y_blk = np.asarray(gemv_q16_symm(q1p, s1p, p))
+        [q1, np.ones(((tp - T) * tb, tb), np.int16)])
+    s1p = np.concatenate([s1, np.ones((tp - T,), np.float32)])
+    y_blk = np.asarray(tri_walk(q1p, p, scales=s1p))
     np.testing.assert_array_equal(y_one, y_blk)
     # wrong tile counts still rejected
     with pytest.raises(ValueError, match="tiles"):
-        gemv_q16_symm(q1[: (T - 1) * tb], s1[: T - 1], p)
+        tri_walk(q1[: (T - 1) * tb], p, scales=s1[: T - 1])
 
 
 def test_fq_planes_are_padded_to_the_blocked_grid():
     """from_dense_fq (and the native/file paths that promise bitwise
     identity with it) stores Q16_P-padded planes: all-zero pad tiles,
-    zero pad scales — the layout the blocked q16 grid reads."""
+    zero pad scales."""
     from lam_tpu.ops.gemv import SYMM_TB, padded_tri_tile_count
     n = 700
     a, _ = _spd(n, 9)
@@ -167,9 +152,8 @@ def test_fq_operator_matvec_diagonal_and_padding():
     rng = np.random.default_rng(4)
     p = rng.uniform(-1, 1, n)
     y = np.asarray(op.extract_x(op.matvec(op.prepare_b(p))))
-    # CPU interpret arithmetic: broken EFT rebuild ~1e-7 (hardware
-    # asserts the ~2^-48 storage bound, tests/test_tpu.py)
-    assert np.linalg.norm(y - a @ p) / np.linalg.norm(a @ p) < 1e-6
+    # the ~2^-48 tile-relative storage bound, in an f64 walk
+    assert np.linalg.norm(y - a @ p) / np.linalg.norm(a @ p) < 1e-12
 
 
 def test_fq_as_f32_shares_operand_and_adds_diagonal():
@@ -192,19 +176,17 @@ def test_irfq_solve_end_to_end():
     n = 600
     a, b = _spd(n, 7)
     op = DenseOperator.from_dense(a, precision="fq")
-    # 1e-6: reachable on the CPU interpret path (the 1e-9 claim is the
-    # hardware test); the coarse inner operator needs the 1e-2 floor
-    # (scripts/fq_feasibility.py sweep)
+    # the coarse inner operator needs the 1e-2 floor
     res = cg_solve_ir(op.as_f32(), op, b, max_iters=5000,
-                      rel_error=1e-6, inner_floor=1e-2)
+                      rel_error=1e-9, inner_floor=1e-2)
     assert bool(res.converged)
     x = np.asarray(res.x)
-    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 1e-5
+    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 2e-9
 
 
 def test_irfq_default_floor_schedule():
     """The production default floor for irfq is the measured
-    loose-early/tight-late SCHEDULE (results/ITER_RECOVERY_r05.log);
+    loose-early/tight-late SCHEDULE (solver/cg.py IRFQ_INNER_FLOOR);
     a schedule-valued inner_floor must solve to the same residual as
     the flat floor (cycle c uses floors[min(c, len-1)])."""
     from lam_tpu import cg_solve_ir
@@ -330,7 +312,7 @@ def test_irfq_through_api_and_file(tmp_path):
 def test_fq_error_paths():
     with pytest.raises(ValueError, match="not combinable"):
         DenseOperator.from_dense(_sym(512, 11), precision="fq",
-                                 engine="pallas")
+                                 engine="xla")
     asym = np.triu(np.ones((512, 512)))
     with pytest.raises(ValueError, match="symmetric"):
         DenseOperator.from_dense(asym, precision="fq")
@@ -340,6 +322,6 @@ def test_fq_error_paths():
     # 2-D engine rejects cleanly
     from lam_tpu.solver.api import ConjugateGradient
     cg = ConjugateGradient(backend="sharded2d", precision="irfq",
-                           engine="pallas", n_devices=4)
+                           engine="xla", n_devices=4)
     with pytest.raises(ValueError, match="symmetric grid"):
         cg.generate_matrix(512)

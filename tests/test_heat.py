@@ -1,6 +1,7 @@
 """Heat-equation demo: Jacobi parity, CG equivalence, BMP output."""
 
 import numpy as np
+import pytest
 
 from lam_tpu.apps import bmp, heat
 
@@ -49,38 +50,67 @@ def test_cg_agrees_with_converged_jacobi():
     assert iters < 200
 
 
-def test_laplace5_stencil_kernel():
-    """Pallas 5-point stencil == dense 5-point action, padding stays
-    exactly zero, and the fused p.Ap matches (ops/stencil.py)."""
+def _laplace_ref(g):
+    ref = 4 * g.copy()
+    ref[1:, :] -= g[:-1, :]
+    ref[:-1, :] -= g[1:, :]
+    ref[:, 1:] -= g[:, :-1]
+    ref[:, :-1] -= g[:, 1:]
+    return ref
+
+
+STENCIL_SHAPES = [(98, 118), (7, 5), (300, 250), (256, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nyi,nxi", STENCIL_SHAPES)
+def test_laplace5_stencil_kernel(nyi, nxi, dtype):
+    """The XLA 5-point stencil == dense 5-point action, in the vector's
+    dtype (the f32 inner and the f64 refinement operator of 'ir')."""
     import jax.numpy as jnp
 
-    from lam_tpu.ops.stencil import laplace5_f32, padded_hw
-
     rng = np.random.default_rng(3)
-    for nyi, nxi in [(98, 118), (7, 5), (300, 250), (256, 128)]:
-        H, W, tbr = padded_hw(nyi, nxi)
-        p = np.zeros((H, W), np.float32)
-        p[:nyi, :nxi] = rng.standard_normal((nyi, nxi)).astype(np.float32)
-        y, d = laplace5_f32(jnp.asarray(p), nyi=nyi, nxi=nxi, tbr=tbr)
-        y = np.asarray(y)
-        g = p.astype(np.float64)[:nyi, :nxi]
-        ref = 4 * g.copy()
-        ref[1:, :] -= g[:-1, :]
-        ref[:-1, :] -= g[1:, :]
-        ref[:, 1:] -= g[:, :-1]
-        ref[:, :-1] -= g[:, 1:]
-        np.testing.assert_allclose(y[:nyi, :nxi], ref, atol=1e-5)
-        assert (y[nyi:] == 0).all() and (y[:, nxi:] == 0).all()
-        dref = float((g * ref).sum())
-        assert abs(float(d) - dref) <= 1e-6 * abs(dref) + 1e-6
+    g = rng.standard_normal((nyi, nxi)).astype(dtype)
+    y = heat._laplace_matvec(nyi, nxi)(None, jnp.asarray(g.reshape(-1)))
+    assert y.dtype == jnp.dtype(dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    np.testing.assert_allclose(np.asarray(y, np.float64).reshape(nyi, nxi),
+                               _laplace_ref(g.astype(np.float64)),
+                               atol=tol)
+
+
+@pytest.mark.parametrize("g,nyi", [(2, 98), (4, 7), (8, 300)])
+def test_sharded_halo_stencil_matches_dense(g, nyi):
+    """The row-sharded halo form on a g-device mesh: the last shard's
+    pad rows stay exactly zero and the interior matches the dense
+    stencil (ppermute'd edge rows at the shard boundaries)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from lam_tpu.parallel.mesh import make_mesh
+
+    nxi = 37
+    mesh = make_mesh(g)
+    axis = mesh.axis_names[0]
+    hs = -(-nyi // g)
+    apply = heat._sharded_stencil_apply(axis, nyi, nxi, hs, g)
+    rng = np.random.default_rng(g)
+    u = np.zeros((g * hs, nxi))
+    u[:nyi] = rng.standard_normal((nyi, nxi))
+    fn = jax.jit(jax.shard_map(lambda p: apply(None, p), mesh=mesh,
+                               in_specs=P(axis), out_specs=P(axis),
+                               check_vma=False))
+    y = np.asarray(fn(jnp.asarray(u.reshape(-1)))).reshape(g * hs, nxi)
+    np.testing.assert_allclose(y[:nyi], _laplace_ref(u[:nyi]), atol=1e-12)
+    assert not y[nyi:].any()
 
 
 def test_cg_ir_matches_f64_path():
     """The mixed-precision heat path converges to the same steady state.
 
-    `precision='ir'` is the TPU default (f64 is software-emulated there);
-    on CPU both paths run, so assert they agree through the dtype-
-    polymorphic stencil to the rel_error-implied solution accuracy."""
+    Both paths run the same dtype-polymorphic stencil; assert they
+    agree to the rel_error-implied solution accuracy."""
     g0 = heat.initial_grid(30, 26)
     f64, _, rel64 = heat.solve_heat_cg(g0, precision="f64", rel_error=1e-10)
     ir, _, rel_ir = heat.solve_heat_cg(g0, precision="ir", rel_error=1e-10)

@@ -1,111 +1,283 @@
-"""Pallas gemv kernels (interpreter mode on CPU) vs numpy."""
+"""The packed triangle walk: the Pallas kernel (interpret mode on CPU)
+and the plain XLA forms against numpy f64."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from lam_tpu.ops.gemv import gemv_df64, gemv_f32
-from lam_tpu.precision import split_f64
+from lam_tpu.ops import gemv
 
 
-def _padded_random(m, n, seed):
+def _symm(n, seed):
     rng = np.random.default_rng(seed)
-    return rng.uniform(-1, 1, size=(m, n)), rng.uniform(-1, 1, size=n)
+    m = rng.uniform(-1, 1, size=(n, n))
+    return m + m.T, rng.uniform(-1, 1, size=n)
 
 
-def test_gemv_f32_matches_numpy():
-    m, n = 512, 1024
-    a, p = _padded_random(m, n, 0)
-    a32 = jnp.asarray(a, dtype=jnp.float32)
-    p32 = jnp.asarray(p, dtype=jnp.float32)
-    y = np.asarray(gemv_f32(a32, p32))
-    ref = np.asarray(a32, dtype=np.float64) @ np.asarray(p32,
-                                                         dtype=np.float64)
-    # f32 accumulation differs from numpy's order only at rounding level
-    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-5
+def _stored(a, tb, storage):
+    """Packed walk-order tiles of `a` in `storage` ('f32' or 'q16') and
+    the exact f64 matrix those stored values represent."""
+    nblk = a.shape[0] // tb
+    if storage == "f32":
+        buf = gemv.pack_tri_host(a.astype(np.float32), tb)
+        return buf, None, a.astype(np.float32).astype(np.float64)
+    q1, _, _, s1, _, _ = gemv.quantize_fq_tiles(gemv.pack_tri_host(a, tb),
+                                                tb)
+    # the dense matrix of the stored int16 x scale values
+    dense = np.zeros_like(a)
+    it, kt = gemv._symm_tables(nblk)
+    for t, (i, k) in enumerate(zip(it, kt)):
+        tile = q1[t * tb:(t + 1) * tb].astype(np.float64) * float(s1[t])
+        dense[i * tb:(i + 1) * tb, k * tb:(k + 1) * tb] = tile
+        if k < i:
+            dense[k * tb:(k + 1) * tb, i * tb:(i + 1) * tb] = tile.T
+    return q1, s1, dense
 
 
-def test_gemv_f32_rectangular_row_block():
-    m, n = 256, 1536  # a sharded local block shape
-    a, p = _padded_random(m, n, 1)
-    y = np.asarray(gemv_f32(jnp.asarray(a, jnp.float32),
-                            jnp.asarray(p, jnp.float32)))
-    assert y.shape == (m,)
-    ref = (a.astype(np.float32).astype(np.float64)
-           @ p.astype(np.float32).astype(np.float64))
-    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-5
+def _rel(y, ref):
+    return np.linalg.norm(y - ref) / np.linalg.norm(ref)
 
 
-def test_gemv_df64_is_f64_quality():
-    m, n = 512, 1024
-    a, p = _padded_random(m, n, 2)
-    a_hi, a_lo = split_f64(jnp.asarray(a))
-    p_hi, p_lo = split_f64(jnp.asarray(p))
-    yh, yl = gemv_df64(a_hi, a_lo, p_hi, p_lo)
-    y = np.asarray(yh, dtype=np.float64) + np.asarray(yl, dtype=np.float64)
-    ref = a @ p
-    err = np.linalg.norm(y - ref) / np.linalg.norm(ref)
-    import jax
-    if jax.default_backend() == "tpu":
-        # Mosaic preserves the error-free transforms: ~2^-48 accuracy
-        # (measured 7.8e-15 L2 on v5e).
-        assert err < 1e-13, f"df64 gemv error {err:.3e}"
-    else:
-        # XLA:CPU (interpret mode) evaluates fused f32 regions in excess
-        # precision, which silently disables the compensation (the result
-        # is *more* accurate than plain f32 but not exactly-rounded).
-        # Strict verification happens on TPU hardware.
-        assert err < 1e-6, f"df64 gemv error {err:.3e}"
+# one tile, several tiles, a wider tile
+WALK_CASES = [(128, 128), (512, 128), (1024, 256)]
 
 
-def test_gemv_df64_zero_padding_rows_are_zero():
-    m, n = 512, 512
-    a = np.zeros((m, n))
-    a[:100, :100] = np.random.default_rng(3).uniform(-1, 1, (100, 100))
-    p = np.zeros(n)
-    p[:100] = 1.0
-    a_hi, a_lo = split_f64(jnp.asarray(a))
-    p_hi, p_lo = split_f64(jnp.asarray(p))
-    yh, yl = gemv_df64(a_hi, a_lo, p_hi, p_lo)
-    y = np.asarray(yh, dtype=np.float64) + np.asarray(yl, dtype=np.float64)
-    assert np.all(y[100:] == 0.0)
-    np.testing.assert_allclose(y[:100], (a @ p)[:100], rtol=1e-6)
+@pytest.mark.parametrize("storage", ["f32", "q16"])
+@pytest.mark.parametrize("n,tb", WALK_CASES)
+def test_kernel_walk_matches_f64(storage, n, tb):
+    a, p = _symm(n, n + tb)
+    buf, scales, dense = _stored(a, tb, storage)
+    p32 = p.astype(np.float32)
+    y = np.asarray(gemv.tri_walk(jnp.asarray(buf), jnp.asarray(p32),
+                                 None if scales is None
+                                 else jnp.asarray(scales)), np.float64)
+    # f32 products and sums over n terms against the f64 product of the
+    # same stored values
+    assert _rel(y, dense @ p32.astype(np.float64)) < 1e-5
 
 
-def test_gemv_tile_fitting_and_rejection():
-    import pytest
-    from lam_tpu.ops.gemv import _fit_tile
-    assert _fit_tile(1536, 1024, "cols") == 512   # falls back to a divisor
-    assert _fit_tile(2048, 1024, "cols") == 1024
-    assert _fit_tile(128, 1024, "cols") == 128
-    with pytest.raises(ValueError):
-        _fit_tile(1000, 1024, "cols")             # not 128-aligned: loud
+@pytest.mark.parametrize("storage", ["f32", "q16"])
+def test_kernel_partials_per_tile(storage):
+    """direct[t] = T_t @ p[kt], trans[t] = T_t^T @ p[it] off the
+    diagonal and exactly 0 on diagonal tiles."""
+    n, tb = 384, 128
+    a, p = _symm(n, 3)
+    buf, scales, _ = _stored(a, tb, storage)
+    it, kt = gemv._symm_tables(n // tb)
+    p32 = p.astype(np.float32)
+    direct, trans = gemv.tri_walk_partials(
+        jnp.asarray(buf), jnp.asarray(p32), jnp.asarray(it),
+        jnp.asarray(kt), None if scales is None else jnp.asarray(scales))
+    direct, trans = np.asarray(direct), np.asarray(trans)
+    for t, (i, k) in enumerate(zip(it, kt)):
+        tile = buf[t * tb:(t + 1) * tb].astype(np.float64)
+        if scales is not None:
+            tile = tile * float(scales[t])
+        pk = p32[k * tb:(k + 1) * tb].astype(np.float64)
+        pi = p32[i * tb:(i + 1) * tb].astype(np.float64)
+        assert _rel(direct[t], tile @ pk) < 1e-5
+        if k < i:
+            assert _rel(trans[t], tile.T @ pi) < 1e-5
+        else:
+            assert not trans[t].any()
 
 
-def test_gemv_f32_symm_matches_full():
-    from lam_tpu.ops.gemv import gemv_f32, gemv_f32_symm
-    rng = np.random.default_rng(5)
-    for n, tb in [(512, 512), (1536, 512), (1024, 256)]:
-        m = rng.standard_normal((n, n)).astype(np.float32)
-        a = m + m.T
-        p = rng.standard_normal(n).astype(np.float32)
-        y_symm = np.asarray(gemv_f32_symm(jnp.asarray(a), jnp.asarray(p),
-                                          tb=tb))
-        ref = a.astype(np.float64) @ p.astype(np.float64)
-        # both are f32-accumulation answers to the same product
-        err = np.linalg.norm(y_symm - ref) / np.linalg.norm(ref)
-        assert err < 1e-5, (n, tb, err)
-        y_full = np.asarray(gemv_f32(jnp.asarray(a), jnp.asarray(p)))
-        err_full = np.linalg.norm(y_full - ref) / np.linalg.norm(ref)
-        assert err < 50 * max(err_full, 1e-8), (err, err_full)
+@pytest.mark.parametrize("storage", ["f32", "q16"])
+def test_kernel_agrees_with_xla_walk(storage):
+    n, tb = 512, 128
+    a, p = _symm(n, 4)
+    buf, scales, _ = _stored(a, tb, storage)
+    args = (jnp.asarray(buf), jnp.asarray(p.astype(np.float32)),
+            None if scales is None else jnp.asarray(scales))
+    y_k = np.asarray(gemv.tri_walk(*args), np.float64)
+    y_x = np.asarray(gemv.tri_walk(*args, kernel=False), np.float64)
+    assert _rel(y_k, y_x) < 1e-6
 
 
-def test_gemv_f32_symm_rejects_rectangular():
-    from lam_tpu.ops.gemv import gemv_f32_symm
-    a = jnp.zeros((256, 512), jnp.float32)
-    p = jnp.zeros(512, jnp.float32)
-    with pytest.raises(ValueError):
-        gemv_f32_symm(a, p)
+@pytest.mark.parametrize("nblk", [3, 5])
+def test_kernel_ignores_q16_pad_tiles(nblk):
+    """fq planes are padded to a multiple of Q16_P walk tiles; the walk
+    never reads past its T tiles, so pad contents cannot matter."""
+    tb = 128
+    n = nblk * tb
+    a, p = _symm(n, nblk)
+    q1, s1, dense = _stored(a, tb, "q16")
+    T = gemv.tri_tile_count(nblk)
+    Ts = gemv.padded_tri_tile_count(nblk)
+    assert Ts % gemv.Q16_P == 0 and Ts > T
+    q_pad = np.full((Ts * tb, tb), 32767, np.int16)
+    q_pad[:T * tb] = q1
+    s_pad = np.full((Ts,), 2.0 ** 20, np.float32)
+    s_pad[:T] = s1
+    p32 = p.astype(np.float32)
+    y = np.asarray(gemv.tri_walk(jnp.asarray(q_pad), jnp.asarray(p32),
+                                 jnp.asarray(s_pad)), np.float64)
+    assert _rel(y, dense @ p32.astype(np.float64)) < 1e-5
+
+
+@pytest.mark.parametrize("storage", ["f32", "q16"])
+def test_kernel_slab_tables_sum_to_full_matvec(storage):
+    """The band-pair walk: each device's packed tiles in its own walk
+    order (pcg_symm._band_tables); per-device partials folded by global
+    row/column tile sum to A @ p."""
+    from lam_tpu.parallel.pcg_symm import _band_tables
+    n, g, tb = 1024, 2, 128
+    it, kt, _ = _band_tables(g, n // (2 * g) // tb, tb)
+    a, p = _symm(n, 5)
+    _, _, dense = _stored(a, tb, storage)
+    p32 = jnp.asarray(p.astype(np.float32))
+    y = np.zeros(n)
+    for c in range(g):
+        packed = gemv.pack_tri_host(dense, tb, it=it[c], kt=kt[c])
+        if storage == "f32":
+            buf, scales = packed.astype(np.float32), None
+        else:
+            buf, _, _, scales, _, _ = gemv.quantize_fq_tiles(packed, tb)
+            scales = jnp.asarray(scales)
+        direct, trans = gemv.tri_walk_partials(
+            jnp.asarray(buf), p32, jnp.asarray(it[c]), jnp.asarray(kt[c]),
+            scales)
+        yd, yt = gemv.fold_partials(direct, trans, jnp.asarray(it[c]),
+                                    jnp.asarray(kt[c]), n // tb, n // tb)
+        y += np.asarray(yd, np.float64) + np.asarray(yt, np.float64)
+    assert _rel(y, dense @ np.asarray(p32, np.float64)) < 1e-5
+
+
+@pytest.mark.parametrize("rows,num_warps,num_stages",
+                         [(8, 4, 3), (16, 8, 2), (128, 4, 1)])
+def test_kernel_configs_agree(rows, num_warps, num_stages, monkeypatch):
+    """Every chunking gives the same product (rows is capped at tb)."""
+    monkeypatch.setitem(gemv.KERNEL_CONFIG, np.dtype(np.float32),
+                        dict(rows=rows, num_warps=num_warps,
+                             num_stages=num_stages))
+    # the configuration is read at trace time: drop traces made with
+    # another one, before and after
+    gemv.tri_walk_partials.clear_cache()
+    n, tb = 512, 128
+    a, p = _symm(n, 6)
+    buf, _, dense = _stored(a, tb, "f32")
+    p32 = p.astype(np.float32)
+    try:
+        y = np.asarray(gemv.tri_walk(jnp.asarray(buf), jnp.asarray(p32)),
+                       np.float64)
+    finally:
+        gemv.tri_walk_partials.clear_cache()
+    assert _rel(y, dense @ p32.astype(np.float64)) < 1e-5
+
+
+def test_kernel_config_table_covers_both_storages():
+    assert set(gemv.KERNEL_CONFIG) == {np.dtype(np.float32),
+                                       np.dtype(np.int16)}
+    for cfg in gemv.KERNEL_CONFIG.values():
+        assert cfg["rows"] & (cfg["rows"] - 1) == 0   # power of two
+        assert gemv.SYMM_TB % cfg["rows"] == 0
+
+
+def test_f64_walk_of_quantized_tiles_is_exact():
+    """The accurate walk: dequantized int16 tiles in f64 reproduce the
+    stored matrix to f64 rounding."""
+    n, tb = 512, 128
+    a, p = _symm(n, 7)
+    q1, s1, dense = _stored(a, tb, "q16")
+    y = np.asarray(gemv.tri_walk(jnp.asarray(q1), jnp.asarray(p),
+                                 jnp.asarray(s1), kernel=False))
+    assert _rel(y, dense @ p) < 1e-13
+
+
+def test_packing_never_reads_upper_triangle():
+    n, tb = 512, 128
+    a, p = _symm(n, 8)
+    poisoned = a.copy()
+    for bi in range(n // tb):
+        poisoned[bi * tb:(bi + 1) * tb, (bi + 1) * tb:] = np.nan
+    buf = gemv.pack_tri_host(poisoned.astype(np.float32), tb)
+    y = np.asarray(gemv.tri_walk(jnp.asarray(buf),
+                                 jnp.asarray(p.astype(np.float32))),
+                   np.float64)
+    assert np.isfinite(y).all()
+    assert _rel(y, a @ p) < 1e-5
+
+
+def _bad_walk(case):
+    p = jnp.zeros((512,), jnp.float32)
+    it, kt = (jnp.asarray(t) for t in gemv._symm_tables(4))
+    tiles = jnp.zeros((10 * 128, 128), jnp.float32)
+    if case == "tb":
+        return (jnp.zeros((10 * 96, 96), jnp.float32),
+                jnp.zeros((384,), jnp.float32), it, kt, None)
+    if case == "n":
+        return tiles, jnp.zeros((500,), jnp.float32), it, kt, None
+    if case == "short":
+        return tiles[:9 * 128], p, it, kt, None
+    if case == "scales":
+        return tiles.astype(jnp.int16), p, it, kt, None
+    return tiles.astype(jnp.float64), p, it, kt, None
+
+
+@pytest.mark.parametrize("case,match", [
+    ("tb", "power of two"), ("n", "multiple"), ("short", "tiles"),
+    ("scales", "scale"), ("dtype", "float32 or int16")])
+def test_kernel_rejects_bad_walks(case, match):
+    with pytest.raises(ValueError, match=match):
+        gemv.tri_walk_partials(*_bad_walk(case))
+
+
+def test_kernel_runs_interpreted_on_cpu_only():
+    """The cpu row interprets the kernel; the gpu row compiles it
+    through Triton (lam_tpu/platform.py)."""
+    from lam_tpu import platform
+    assert jax.default_backend() == "cpu"
+    assert platform.current().pallas_interpret
+    assert not platform.PLATFORMS["gpu"].pallas_interpret
+    assert platform.PLATFORMS["gpu"].pallas_backend == "triton"
+
+
+# -- XLA matvecs: f32 products at HIGHEST precision -------------------------
+
+
+def _dot_precisions(fn, *args):
+    jaxpr = jax.make_jaxpr(fn)(*args)
+    found = []
+
+    def walk(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+
+    walk(jaxpr.jaxpr)
+    return found
+
+
+def _f32_matvecs():
+    from lam_tpu.solver import operators as ops
+    a = jnp.zeros((256, 256), jnp.float32)
+    p = jnp.zeros((256,), jnp.float32)
+    buf = jnp.zeros((3 * 128, 128), jnp.float32)
+    it, kt = (jnp.asarray(t) for t in gemv._symm_tables(2))
+    return {
+        "mv_xla": (ops._mv_xla, a, p),
+        "mv_cols_xla": (lambda a, p: ops._mv_cols_xla(a, p, 1), a, p[:128]),
+        "f32_of_f64": (ops._mv_f32_of_f64_xla, a.astype(jnp.float64), p),
+        "tri_walk_xla": (lambda b, v: gemv.tri_walk_xla(b, v, it, kt),
+                         buf, p),
+    }
+
+
+@pytest.mark.parametrize("name", ["mv_xla", "mv_cols_xla", "f32_of_f64",
+                                  "tri_walk_xla"])
+def test_f32_xla_products_ask_for_highest(name):
+    fn, *args = _f32_matvecs()[name]
+    precisions = _dot_precisions(fn, *args)
+    assert precisions
+    hi = jax.lax.Precision.HIGHEST
+    for prec in precisions:
+        assert prec is not None and all(x == hi for x in prec), prec
+
+
+# -- operators over packed storage ------------------------------------------
 
 
 def test_symmetry_check_and_engine_guard():
@@ -120,283 +292,36 @@ def test_symmetry_check_and_engine_guard():
     assert not _verifies_symmetric(bad)
     with pytest.raises(ValueError, match="symmetric"):
         DenseOperator.from_dense(m, precision="f32",
-                                 engine="pallas_symm")
+                                 engine="pallas_symm_packed")
 
 
-def test_gemv_f32_rejects_bad_impl():
-    a, p = _padded_random(128, 256, 9)
-    with pytest.raises(ValueError, match="impl"):
-        gemv_f32(jnp.asarray(a, jnp.float32), jnp.asarray(p, jnp.float32),
-                 impl="vpU")
-
-
-def test_gemv_cols_reject_indivisible_block():
-    from lam_tpu.ops.gemv import gemv_df64_cols, gemv_f32_cols
-    a, p = _padded_random(128, 384, 10)
-    a32 = jnp.asarray(a, jnp.float32)
-    with pytest.raises(ValueError, match="divisible"):
-        gemv_f32_cols(a32, jnp.asarray(p[:256], jnp.float32), 0)
-    hi, lo = split_f64(jnp.asarray(a))
-    ph, pl_ = split_f64(jnp.asarray(p[:256]))
-    with pytest.raises(ValueError, match="divisible"):
-        gemv_df64_cols(hi, lo, ph, pl_, 0)
-
-
-def test_gemv_df64_comp_variants():
-    """All compensation budgets run and stay (at least) f32-accurate in
-    interpret mode; XLA:CPU's excess precision disables real
-    compensation here, so the exactly-rounded (1e-13) accuracy of every
-    budget is checked on the real chip by scripts/tpu_smoke.py §8."""
-    from lam_tpu.ops.gemv import gemv_df64, gemv_df64_cols
-    a, p = _padded_random(256, 512, 12)
-    hi, lo = split_f64(jnp.asarray(a))
-    ph, pl_ = split_f64(jnp.asarray(p))
-    ref = a @ p
-    for comp in ("full", "nolow"):
-        yh, yl = gemv_df64(hi, lo, ph, pl_, comp=comp)
-        y = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-        err = np.linalg.norm(y - ref) / np.linalg.norm(ref)
-        assert err < 1e-6, (comp, err)
-        # column-block twin with the same budget (blk=1 -> cols 256:512)
-        ch, cl = gemv_df64_cols(hi, lo, ph[256:512], pl_[256:512], 1,
-                                tile_k=256, comp=comp)
-        c = np.asarray(ch, np.float64) + np.asarray(cl, np.float64)
-        cref = a[:, 256:512] @ p[256:512]
-        cerr = np.linalg.norm(c - cref) / np.linalg.norm(cref)
-        assert cerr < 1e-6, (comp, cerr)
-    with pytest.raises(ValueError, match="comp"):
-        gemv_df64(hi, lo, ph, pl_, comp="bogus")
-    # 'defer' was REJECTED on hardware (true residual 3.3e-07,
-    # results/DF64_DEFER_r04.log): selecting it must fail loudly unless
-    # the private measurement hook is set (scripts/df64_defer.py)
-    with pytest.raises(ValueError, match="defer"):
-        gemv_df64(hi, lo, ph, pl_, comp="defer")
-
-
-def test_gemv_df64_symm_is_f64_quality():
-    from lam_tpu.ops.gemv import gemv_df64_symm
-    n = 1024
-    rng = np.random.default_rng(11)
-    m = rng.uniform(-1, 1, size=(n, n))
-    a = m + m.T                      # symmetric
-    p = rng.uniform(-1, 1, size=n)
-    a_hi, a_lo = split_f64(a)
-    p_hi, p_lo = split_f64(p)
-    import jax
-    # On TPU Mosaic the error-free transforms hold (~2^-48, measured
-    # 7.4e-15 on v5e); XLA:CPU interpret mode evaluates fused f32
-    # regions in excess precision, silently weakening the compensation
-    # (same caveat as test_gemv_df64_is_f64_quality).
-    tol = 1e-13 if jax.default_backend() == "tpu" else 1e-6
-    for comp in ("full", "nolow"):
-        yh, yl = gemv_df64_symm(jnp.asarray(a_hi), jnp.asarray(a_lo),
-                                jnp.asarray(p_hi), jnp.asarray(p_lo),
-                                comp=comp)
-        y = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-        ref = a @ p
-        err = np.linalg.norm(y - ref) / np.linalg.norm(ref)
-        assert err < tol, f"df64 symm gemv ({comp}) error {err:.3e}"
-        # agreement with the full-matrix df64 kernel at the same level
-        fh, fl = gemv_df64(jnp.asarray(a_hi), jnp.asarray(a_lo),
-                           jnp.asarray(p_hi), jnp.asarray(p_lo),
-                           comp=comp)
-        yf = np.asarray(fh, np.float64) + np.asarray(fl, np.float64)
-        assert np.linalg.norm(y - yf) / np.linalg.norm(ref) < tol
-
-
-def test_gemv_df64_symm_never_reads_upper_triangle():
-    from lam_tpu.ops.gemv import gemv_df64_symm
-    n = 512
-    rng = np.random.default_rng(12)
-    m = rng.uniform(-1, 1, size=(n, n))
-    a = m + m.T
-    p = rng.uniform(-1, 1, size=n)
-    a_hi, a_lo = split_f64(a)
-    # poison every element strictly above the TILE-diagonal: values
-    # there must never be read (storage keeps the square, kernel skips)
-    tb = 128
-    poisoned_hi = a_hi.copy()
-    for bi in range(n // tb):
-        poisoned_hi[bi * tb:(bi + 1) * tb, (bi + 1) * tb:] = np.nan
-    p_hi, p_lo = split_f64(p)
-    yh, yl = gemv_df64_symm(jnp.asarray(poisoned_hi), jnp.asarray(a_lo),
-                            jnp.asarray(p_hi), jnp.asarray(p_lo), tb=tb)
-    y = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-    ref = a @ p
-    assert np.isfinite(y).all()
-    import jax
-    tol = 1e-13 if jax.default_backend() == "tpu" else 1e-6
-    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < tol
-
-
-def test_gemv_df64_symm_rejects_rectangular():
-    from lam_tpu.ops.gemv import gemv_df64_symm
-    a = jnp.zeros((256, 512), jnp.float32)
-    p = jnp.zeros((512,), jnp.float32)
-    with pytest.raises(ValueError, match="square"):
-        gemv_df64_symm(a, a, p, p)
-
-
-def test_gemv_df64_symm_slab_partials_sum_to_full_matvec():
-    # host-side emulation of the band-pair shard_map program: per-chip
-    # slab partials (direct rows + transpose scatter) must sum to A @ p
-    from lam_tpu.ops.gemv import gemv_df64_symm_slab
-    from lam_tpu.parallel.pcg_symm import _band_tables, _slab_row_ranges
-    import jax
-    n = 1024
-    g, tb = 2, 128
-    m = n // (2 * g)            # 256 rows per band
-    mt = m // tb
-    it, kt, lt = _band_tables(g, mt, tb)
-    rng = np.random.default_rng(13)
-    mmat = rng.uniform(-1, 1, size=(n, n))
-    a = mmat + mmat.T
-    p = rng.uniform(-1, 1, size=n)
-    a_hi, a_lo = split_f64(a)
-    p_hi, p_lo = split_f64(p)
-    y = np.zeros(n)
-    for c in range(g):
-        (r0a, ma), (r0b, mb) = _slab_row_ranges(c, g, m)
-        rows = np.concatenate([np.arange(r0a, r0a + ma),
-                               np.arange(r0b, r0b + mb)])
-        ydh, ydl, yth, ytl = gemv_df64_symm_slab(
-            jnp.asarray(a_hi[rows]), jnp.asarray(a_lo[rows]),
-            jnp.asarray(p_hi), jnp.asarray(p_lo),
-            jnp.asarray(it[c]), jnp.asarray(kt[c]), jnp.asarray(lt[c]),
-            tb=tb)
-        y[rows] += np.asarray(ydh, np.float64) + np.asarray(ydl,
-                                                            np.float64)
-        y += np.asarray(yth, np.float64) + np.asarray(ytl, np.float64)
-    ref = a @ p
-    tol = 1e-13 if jax.default_backend() == "tpu" else 1e-6
-    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < tol
-
-
-# --- packed triangle storage (round 3) -------------------------------------
-
-
-def _symm_system(n, seed):
-    rng = np.random.default_rng(seed)
-    m = rng.uniform(-1, 1, size=(n, n))
-    return m + m.T, rng.uniform(-1, 1, size=n)
-
-
-def test_gemv_f32_symm_packed_matches_full():
-    # packed walk-order storage must be BIT-identical to the full-square
-    # kernel (same walk, same arithmetic; only the A index_map changes)
-    from lam_tpu.ops.gemv import gemv_f32_symm, pack_tri_host
-    a, p = _symm_system(512, 21)
-    a32 = a.astype(np.float32)
-    p32 = jnp.asarray(p, jnp.float32)
-    tb = 128
-    y_full = np.asarray(gemv_f32_symm(jnp.asarray(a32), p32, tb=tb))
-    y_pack = np.asarray(gemv_f32_symm(
-        jnp.asarray(pack_tri_host(a32, tb)), p32, packed=True))
-    assert np.array_equal(y_full, y_pack)
-
-
-def test_gemv_df64_symm_packed_matches_full():
-    from lam_tpu.ops.gemv import gemv_df64_symm, pack_tri_host
-    a, p = _symm_system(512, 22)
-    a_hi, a_lo = split_f64(a)
-    p_hi, p_lo = split_f64(p)
-    tb = 128
-    yh, yl = gemv_df64_symm(jnp.asarray(a_hi), jnp.asarray(a_lo),
-                            jnp.asarray(p_hi), jnp.asarray(p_lo), tb=tb)
-    yh2, yl2 = gemv_df64_symm(
-        jnp.asarray(pack_tri_host(a_hi, tb)),
-        jnp.asarray(pack_tri_host(a_lo, tb)),
-        jnp.asarray(p_hi), jnp.asarray(p_lo), packed=True)
-    assert np.array_equal(np.asarray(yh), np.asarray(yh2))
-    assert np.array_equal(np.asarray(yl), np.asarray(yl2))
-
-
-def test_gemv_df64_symm_packed_lo_broadcast_tile():
-    # a single (tb, tb) zero tile must behave exactly like a full zero
-    # lo plane (the gen-mode capacity optimization)
-    from lam_tpu.ops.gemv import gemv_df64_symm, pack_tri_host
-    a, p = _symm_system(512, 23)
-    a_hi = a.astype(np.float32)          # pretend entries are f32-exact
-    p_hi, p_lo = split_f64(p)
-    tb = 128
-    hi_p = jnp.asarray(pack_tri_host(a_hi, tb))
-    yh, yl = gemv_df64_symm(hi_p, jnp.zeros_like(hi_p),
-                            jnp.asarray(p_hi), jnp.asarray(p_lo),
-                            packed=True)
-    yh2, yl2 = gemv_df64_symm(hi_p, jnp.zeros((tb, tb), jnp.float32),
-                              jnp.asarray(p_hi), jnp.asarray(p_lo),
-                              packed=True)
-    assert np.array_equal(np.asarray(yh), np.asarray(yh2))
-    assert np.array_equal(np.asarray(yl), np.asarray(yl2))
-
-
-def test_gemv_symm_slab_packed_matches_full():
-    from lam_tpu.ops.gemv import (gemv_df64_symm_slab, gemv_f32_symm_slab,
-                                  pack_tri_host)
-    from lam_tpu.parallel.pcg_symm import _band_tables, _slab_row_ranges
-    n, g, tb = 1024, 2, 128
-    m = n // (2 * g)
-    it, kt, lt = _band_tables(g, m // tb, tb)
-    a, p = _symm_system(n, 24)
-    a_hi, a_lo = split_f64(a)
-    p_hi, p_lo = split_f64(p)
-    for c in range(g):
-        (r0a, ma), (r0b, mb) = _slab_row_ranges(c, g, m)
-        rows = np.concatenate([np.arange(r0a, r0a + ma),
-                               np.arange(r0b, r0b + mb)])
-        args32 = (jnp.asarray(p_hi), jnp.asarray(it[c]),
-                  jnp.asarray(kt[c]), jnp.asarray(lt[c]))
-        yd, yt = gemv_f32_symm_slab(jnp.asarray(a_hi[rows]), *args32,
-                                    tb=tb)
-        hi_pk = jnp.asarray(pack_tri_host(a_hi, tb, it=it[c], kt=kt[c]))
-        yd2, yt2 = gemv_f32_symm_slab(hi_pk, *args32, packed=True,
-                                      ms=2 * m)
-        assert np.array_equal(np.asarray(yd), np.asarray(yd2))
-        assert np.array_equal(np.asarray(yt), np.asarray(yt2))
-
-        lo_pk = jnp.asarray(pack_tri_host(a_lo, tb, it=it[c], kt=kt[c]))
-        full = gemv_df64_symm_slab(
-            jnp.asarray(a_hi[rows]), jnp.asarray(a_lo[rows]),
-            jnp.asarray(p_hi), jnp.asarray(p_lo),
-            jnp.asarray(it[c]), jnp.asarray(kt[c]), jnp.asarray(lt[c]),
-            tb=tb)
-        packed = gemv_df64_symm_slab(
-            hi_pk, lo_pk, jnp.asarray(p_hi), jnp.asarray(p_lo),
-            jnp.asarray(it[c]), jnp.asarray(kt[c]), jnp.asarray(lt[c]),
-            packed=True, ms=2 * m)
-        for f, q in zip(full, packed):
-            assert np.array_equal(np.asarray(f), np.asarray(q))
-
-
-def test_packed_geometry_rejections():
-    from lam_tpu.ops.gemv import gemv_f32_symm, gemv_f32_symm_slab
-    p = jnp.zeros((512,), jnp.float32)
-    # wrong tile count for the triangle
-    bad = jnp.zeros((5 * 128, 128), jnp.float32)
-    with pytest.raises(ValueError, match="tiles"):
-        gemv_f32_symm(bad, p, packed=True)
-    # missing ms on the packed slab
-    it = jnp.zeros((4,), jnp.int32)
-    buf = jnp.zeros((4 * 128, 128), jnp.float32)
-    with pytest.raises(ValueError, match="ms"):
-        gemv_f32_symm_slab(buf, p, it, it, it, packed=True)
+@pytest.mark.parametrize("engine", ["pallas", "pallas_symm"])
+def test_removed_engines_raise(engine):
+    from lam_tpu.solver.operators import DenseOperator
+    a, _ = _symm(128, 9)
+    with pytest.raises(ValueError, match="removed"):
+        DenseOperator.from_dense(a, precision="f32", engine=engine)
 
 
 def test_packed_operator_solve_matches_symm_engine():
-    # DenseOperator engine='pallas_symm_packed' must reproduce the
-    # full-square symm engine exactly (same kernel walk, packed reads)
+    """The packed df64 pair (accurate walk in f64) solves like the f64
+    square on engine='xla' (the full-square symmetric engine it was
+    once compared with is gone): same iteration count to a 1e-9
+    residual."""
     from lam_tpu import DenseOperator, cg_solve
     from lam_tpu import generate as gen
     n = 700
     a, b = gen.random_spd_system(n, seed=25)
-    res = {}
-    for engine in ("pallas_symm", "pallas_symm_packed"):
-        op = DenseOperator.from_dense(a, precision="df64", engine=engine)
+    iters = {}
+    for precision, engine in (("df64", "pallas_symm_packed"),
+                              ("f64", "xla")):
+        op = DenseOperator.from_dense(a, precision=precision, engine=engine)
         r = cg_solve(op, b, max_iters=2000, rel_error=1e-9)
-        res[engine] = (int(r.num_iters), np.asarray(r.x, np.float64))
-    assert res["pallas_symm"][0] == res["pallas_symm_packed"][0]
-    assert np.array_equal(res["pallas_symm"][1],
-                          res["pallas_symm_packed"][1])
+        assert bool(r.converged)
+        x = np.asarray(r.x, np.float64)
+        assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 2e-9
+        iters[engine] = int(r.num_iters)
+    assert abs(iters["xla"] - iters["pallas_symm_packed"]) <= 2
 
 
 def test_packed_operator_diagonal_and_pcg():
@@ -415,17 +340,32 @@ def test_packed_operator_diagonal_and_pcg():
     assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 1e-6
 
 
+def test_packed_operator_pads_to_whole_tiles():
+    """n=700 pads to 1024 = two 512 tiles; padding is exact zeros, so
+    the padded matvec equals the unpadded one on the first n rows."""
+    from lam_tpu import DenseOperator
+    a, p = _symm(700, 27)
+    op = DenseOperator.from_dense(a, precision="f32",
+                                  engine="pallas_symm_packed")
+    assert op.n_padded == 1024
+    tb = gemv.SYMM_TB
+    assert op.operand.shape == (gemv.tri_tile_count(2) * tb, tb)
+    y = np.asarray(op.matvec(op.prepare_b(p.astype(np.float32))),
+                   np.float64)
+    assert not y[700:].any()
+    assert _rel(y[:700], a @ p) < 1e-5
+
+
 def test_from_packed_f32_matvec():
     # the gen-mode f32 device-build path: operator from a pre-packed
     # walk-order f32 plane (lam_tpu/solver/api.py _generate_fast)
     from lam_tpu import generate as gen
-    from lam_tpu.ops.gemv import pack_tri_host
     from lam_tpu.solver.operators import DenseOperator, padded_size
     n, tb = 700, 128
     n_p = padded_size(n, tb)
     full = np.zeros((n_p, n_p), np.float32)
     full[:n, :n] = gen.tridiagonal_matrix(n, dtype=np.float32)
-    op = DenseOperator.from_packed_f32(pack_tri_host(full, tb), n, n_p)
+    op = DenseOperator.from_packed_f32(gemv.pack_tri_host(full, tb), n, n_p)
     p = gen.random_rhs(n).astype(np.float32)
     y = np.asarray(op.matvec(op.prepare_b(p)))[:n]
     ref = gen.tridiagonal_matrix(n) @ p.astype(np.float64)

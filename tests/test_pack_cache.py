@@ -3,8 +3,8 @@ operators must come bit-identical from the cached planes, and every
 invalid-cache condition (stale source, truncation, garbage, tile-size
 change) must fall back to a fresh pack — never an error, never stale
 data. The reference re-reads the raw fp64 file every run
-(ConjugateGradient_CPU_MPI_OMP.hpp:325-363); the cache is the TPU-era
-answer to the load times its read_time CSV column measures."""
+(ConjugateGradient_CPU_MPI_OMP.hpp:325-363); the cache is this
+system's answer to the load times its read_time CSV column measures."""
 
 import numpy as np
 import pytest

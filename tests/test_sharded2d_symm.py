@@ -1,10 +1,10 @@
 """SYMMETRIC 2-D grid (half storage + O(N/R) exchange) on the virtual
-mesh — lam_tpu/parallel/pcg2d_symm.py and the ops/gemv.py dual kernels.
+mesh — lam_tpu/parallel/pcg2d_symm.py: the triangle walk on the
+diagonal chips and the XLA half-slab products on the others.
 
 The reference has no symmetric storage anywhere (its backends stream all
 N^2 elements every matvec, ConjugateGradient_GPU_CUDA.cu:171-211); this
-operator is surplus closing VERDICT r2 weak item 3's last clause ("no
-symm/triangle variant on the 2-D grid").
+operator is surplus.
 """
 
 import jax
@@ -32,57 +32,57 @@ def _spd_system(n=96, seed=21):
     return gen.random_spd_matrix(n, seed=seed), gen.random_rhs(n, seed + 10)
 
 
-# -- dual kernels (interpret mode) -------------------------------------------
+# -- half-slab products (XLA) ------------------------------------------------
+
+
+def _half_slab(buf, ms, n, dtype):
+    from lam_tpu.parallel.pcg2d_symm import _rect_tiles_dense
+    return _rect_tiles_dense(jnp.asarray(buf), ms // TB, n // TB, TB, dtype)
+
+
+def _dual(sdn, p, q):
+    hi = jax.lax.Precision.HIGHEST
+    return (np.asarray(jnp.matmul(sdn, p, precision=hi), np.float64),
+            np.asarray(jnp.matmul(sdn.T, q, precision=hi), np.float64))
 
 
 def test_dual_kernel_f32_matches_numpy():
-    from lam_tpu.ops.gemv import gemv_f32_dual, pack_rect_host
+    from lam_tpu.ops.gemv import pack_rect_host
     rng = np.random.default_rng(0)
     ms, n = 256, 512
     s = rng.standard_normal((ms, n)).astype(np.float32)
     p = rng.standard_normal(n).astype(np.float32)
     q = rng.standard_normal(ms).astype(np.float32)
     buf = pack_rect_host(s, TB, pad_tiles=3)  # pad tiles must be inert
-    d, t = gemv_f32_dual(jnp.asarray(buf), jnp.asarray(p),
-                         jnp.asarray(q))
-    np.testing.assert_allclose(np.asarray(d), s @ p, rtol=2e-5,
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(t), s.T @ q, rtol=2e-5,
-                               atol=1e-4)
+    sdn = _half_slab(buf, ms, n, jnp.float32)
+    np.testing.assert_array_equal(np.asarray(sdn), s)
+    d, t = _dual(sdn, jnp.asarray(p), jnp.asarray(q))
+    np.testing.assert_allclose(d, s @ p, rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(t, s.T @ q, rtol=2e-5, atol=1e-4)
 
 
 def test_dual_kernel_df64_matches_numpy():
-    from lam_tpu.ops.gemv import gemv_df64_dual, pack_rect_host
-    from lam_tpu.precision import split_f64
+    from lam_tpu.ops.gemv import pack_rect_host
+    from lam_tpu.solver.operators import split_f64_host
     rng = np.random.default_rng(1)
     ms, n = 256, 384
     s = rng.standard_normal((ms, n))
     p = rng.standard_normal(n)
     q = rng.standard_normal(ms)
-    sh, sl = split_f64(s)
-    bh = pack_rect_host(np.asarray(sh), TB)
-    bl = pack_rect_host(np.asarray(sl), TB)
-    ph, plo = split_f64(p)
-    qh, ql = split_f64(q)
-    dh, dl, th, tl = gemv_df64_dual(jnp.asarray(bh), jnp.asarray(bl),
-                                    ph, plo, qh, ql)
-    d = np.asarray(dh, np.float64) + np.asarray(dl, np.float64)
-    t = np.asarray(th, np.float64) + np.asarray(tl, np.float64)
-    # CPU interpret: excess precision defeats the EFTs (see
-    # test_kernels.py::test_gemv_df64_is_f64_quality); strict bounds are
-    # asserted on hardware (tests/test_tpu.py)
-    tol = 1e-13 if jax.default_backend() == "tpu" else 1e-6
-    assert np.linalg.norm(d - s @ p) / np.linalg.norm(s @ p) < tol
-    assert np.linalg.norm(t - s.T @ q) / np.linalg.norm(s.T @ q) < tol
+    sh, sl = split_f64_host(s)
+    sdn = (_half_slab(pack_rect_host(sh, TB), ms, n, jnp.float64)
+           + _half_slab(pack_rect_host(sl, TB), ms, n, jnp.float64))
+    d, t = _dual(sdn, jnp.asarray(p), jnp.asarray(q))
+    # the (hi, lo) pair rebuilt in f64: f64 products
+    assert np.linalg.norm(d - s @ p) / np.linalg.norm(s @ p) < 1e-13
+    assert np.linalg.norm(t - s.T @ q) / np.linalg.norm(s.T @ q) < 1e-13
 
 
 def test_dual_kernel_rejects_bad_geometry():
-    from lam_tpu.ops.gemv import gemv_f32_dual
+    from lam_tpu.parallel.pcg2d_symm import _rect_tiles_dense
     buf = jnp.zeros((128, 128), jnp.float32)  # 1 tile
-    p = jnp.zeros(256, jnp.float32)           # needs 2 tiles
-    q = jnp.zeros(128, jnp.float32)
     with pytest.raises(ValueError, match="packed buffer has"):
-        gemv_f32_dual(buf, p, q)
+        _rect_tiles_dense(buf, 1, 2, TB, jnp.float32)  # needs 2 tiles
 
 
 # -- operator ----------------------------------------------------------------
@@ -262,21 +262,20 @@ def test_api_routes_sym2d(mesh2x2):
 
 def test_api_sym2d_rejects_f32_precision():
     from lam_tpu import ConjugateGradient
-    cg = ConjugateGradient(backend="sharded2d", engine="pallas_symm",
-                           precision="f32", n_devices=4)
+    cg = ConjugateGradient(backend="sharded2d",
+                           engine="pallas_symm_packed", precision="f32",
+                           n_devices=4)
     with pytest.raises(ValueError, match="df64/ir"):
         cg.generate_matrix(96)
 
 
-# -- quantized-lo (dfq) storage on the 2-D grid (round 3) --------------------
+# -- quantized-lo (dfq) storage on the 2-D grid ------------------------------
 
 
 def test_dual_kernel_dfq_matches_df64_on_reconstructed_lo():
-    """In-VMEM dequantization must be exact: given the same effective
-    lo plane, gemv_dfq_dual and gemv_df64_dual agree bit for bit (same
-    interpret path on CPU)."""
-    from lam_tpu.ops.gemv import (gemv_df64_dual, gemv_dfq_dual,
-                                  pack_rect_host, quantize_lo_tiles)
+    """Dequantization must be exact: given the same effective lo plane,
+    the dfq and df64 accurate half-slab products agree bit for bit."""
+    from lam_tpu.ops.gemv import pack_rect_host, quantize_lo_tiles
     from lam_tpu.solver.operators import split_f64_host
     tb = 128
     ms, n = 256, 512
@@ -288,17 +287,19 @@ def test_dual_kernel_dfq_matches_df64_on_reconstructed_lo():
     q, sc = quantize_lo_tiles(lop, tb)
     lo_rec = (q.astype(np.float32)
               * np.repeat(sc, tb)[:, None].astype(np.float32))
-    p = rng.uniform(-1, 1, n)
-    qv = rng.uniform(-1, 1, ms)
-    ph, plo = split_f64_host(p)
-    qh, ql = split_f64_host(qv)
-    args = (jnp.asarray(ph), jnp.asarray(plo), jnp.asarray(qh),
-            jnp.asarray(ql))
-    out_q = gemv_dfq_dual(jnp.asarray(hip), jnp.asarray(q),
-                          jnp.asarray(sc), *args)
-    out_d = gemv_df64_dual(jnp.asarray(hip), jnp.asarray(lo_rec), *args)
+    from lam_tpu.ops.gemv import dequantize_tiles
+    T = q.shape[0] // tb
+    f64 = jnp.float64
+    deq = (jnp.asarray(hip)[:T * tb].astype(f64)
+           + dequantize_tiles(jnp.asarray(q), jnp.asarray(sc), T, f64))
+    rec = (jnp.asarray(hip).astype(f64) + jnp.asarray(lo_rec).astype(f64))
+    p = jnp.asarray(rng.uniform(-1, 1, n))
+    qv = jnp.asarray(rng.uniform(-1, 1, ms))
+    out_q = _dual(_half_slab(deq, ms, n, f64), p, qv)
+    out_d = _dual(_half_slab(rec, ms, n, f64), p, qv)
     for xq, xd in zip(out_q, out_d):
-        np.testing.assert_array_equal(np.asarray(xq), np.asarray(xd))
+        np.testing.assert_array_equal(xq, xd)
+    np.testing.assert_allclose(out_q[0], s @ np.asarray(p), rtol=1e-9)
 
 
 def test_sym2d_dfq_matvec_diag_capacity(mesh2x2):
@@ -362,7 +363,7 @@ def test_sym2d_irq_via_api(mesh2x2, tmp_path):
 def test_sym2d_fq_matvec_diag_capacity(mesh2x2):
     """2-D fq (round 3b): the three-int16 cascade stored ONCE across
     the grid (6 B/element); accurate matvec at the ~2^-48 storage
-    bound (off-TPU path reconstructs in genuine f64); diagonal as a
+    bound (the planes are rebuilt in native f64); diagonal as a
     P(ROWS) df64 pair; the f32 view reads only the 2-byte q1 plane."""
     a, _ = _spd_system(n=700, seed=91)
     p = gen.random_rhs(700, seed=7)
@@ -422,12 +423,12 @@ def test_sym2d_irfq_via_api(mesh2x2, tmp_path):
 
 
 def test_dual_kernel_fq_broadcast_residual_tiles():
-    """gemv_fq_dual accepts ONE (tb, tb) broadcast tile for the q2/q3
-    residual planes (gen mode, Symm2DOperator.from_gen_fq) and matches
-    the full-zero-plane form bit for bit (same interpret path)."""
-    from lam_tpu.ops.gemv import (gemv_fq_dual, pack_rect_host,
-                                  quantize_fq_tiles)
-    from lam_tpu.solver.operators import split_f64_host
+    """The f64 rebuild of the fq cascade accepts ONE (tb, tb) broadcast
+    tile for the q2/q3 residual planes (gen mode,
+    Symm2DOperator.from_gen_fq) and matches the full-zero-plane form bit
+    for bit; a malformed plane is rejected."""
+    from lam_tpu.ops.gemv import pack_rect_host, quantize_fq_tiles
+    from lam_tpu.parallel.pcg_symm import _rebuild64
     tb = 128
     ms, n = 256, 512
     rng = np.random.default_rng(11)
@@ -435,27 +436,21 @@ def test_dual_kernel_fq_broadcast_residual_tiles():
     sp = pack_rect_host(s, tb, pad_tiles=1)
     q1, _, _, s1, _, _ = quantize_fq_tiles(sp, tb)
     T = q1.shape[0] // tb
-    zs = np.zeros((T,), np.float32)
-    p = rng.uniform(-1, 1, n)
-    qv = rng.uniform(-1, 1, ms)
-    ph, plo = split_f64_host(p)
-    qh, ql = split_f64_host(qv)
-    vecs = (jnp.asarray(ph), jnp.asarray(plo), jnp.asarray(qh),
-            jnp.asarray(ql))
-    full = gemv_fq_dual(jnp.asarray(q1), jnp.zeros_like(jnp.asarray(q1)),
-                        jnp.zeros_like(jnp.asarray(q1)),
-                        jnp.asarray(s1), jnp.asarray(zs),
-                        jnp.asarray(zs), *vecs)
+    zs = jnp.zeros((T,), jnp.float32)
+    scales = (jnp.asarray(s1), zs, zs)
+    q1 = jnp.asarray(q1)
+    full = _rebuild64((q1, jnp.zeros_like(q1), jnp.zeros_like(q1)),
+                      scales, T, tb)
     bcast_tile = jnp.zeros((tb, tb), jnp.int16)
-    bc = gemv_fq_dual(jnp.asarray(q1), bcast_tile, bcast_tile,
-                      jnp.asarray(s1), jnp.asarray(zs),
-                      jnp.asarray(zs), *vecs)
-    for xf, xb in zip(full, bc):
-        np.testing.assert_array_equal(np.asarray(xf), np.asarray(xb))
-    with pytest.raises(ValueError):
-        gemv_fq_dual(jnp.asarray(q1), bcast_tile[:64], bcast_tile,
-                     jnp.asarray(s1), jnp.asarray(zs), jnp.asarray(zs),
-                     *vecs)
+    bc = _rebuild64((q1, bcast_tile, bcast_tile), scales, T, tb)
+    np.testing.assert_array_equal(np.asarray(full), np.asarray(bc))
+    p = jnp.asarray(rng.uniform(-1, 1, n))
+    qv = jnp.asarray(rng.uniform(-1, 1, ms))
+    d, t = _dual(_half_slab(bc, ms, n, jnp.float64), p, qv)
+    # q1 alone: the ~2^-16 tile-relative first plane
+    np.testing.assert_allclose(d, s @ np.asarray(p), rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError, match="tiles"):
+        _rebuild64((q1, bcast_tile[:64], bcast_tile), scales, T, tb)
 
 
 def test_sym2d_gen_fq_matches_dense(mesh2x2):
@@ -507,27 +502,16 @@ def test_sym2d_gen_fq_offsets_and_padding(mesh2x2):
 
 def test_api_gen_fq_routes_sym2d(mesh2x2, monkeypatch):
     """Gen mode with --backend sharded2d --precision irfq routes to the
-    device-built fq grid on TPU (_generate_fast); CPU hosts keep the
-    host-build path (the fast path exists to skip the host->device
-    matrix transfer, which only a real chip pays)."""
+    device-built fq grid (_generate_fast) on every platform: no host
+    build, no host->device matrix transfer."""
     import lam_tpu.parallel.pcg2d_symm as s2
     from lam_tpu.solver.api import ConjugateGradient
     cg = ConjugateGradient(backend="sharded2d", precision="irfq",
                            n_devices=4)
-    assert cg._generate_fast(300) is None  # CPU: host build stays
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    try:
-        op = cg._generate_fast(300)
-        assert isinstance(op, s2.Symm2DOperator)
-        assert op._storage == "fq"
-        q1, q2, q3 = op.operand[0], op.operand[1], op.operand[2]
-        assert q1.dtype == np.int16
-        # residual planes are broadcast tiles, not full planes
-        assert q2.shape[0] < q1.shape[0] and q3.shape[0] < q1.shape[0]
-    finally:
-        # the poisoned-backend build must not leak Pallas-on-CPU
-        # closures into the lru-cached builders other tests share
-        for f in (s2._build_sym2d_cg, s2._build_sym2d_cg_ir,
-                  s2._build_sym2d_pcg, s2._build_sym2d_matvec,
-                  s2._build_sym2d_chain):
-            f.cache_clear()
+    op = cg._generate_fast(300)
+    assert isinstance(op, s2.Symm2DOperator)
+    assert op._storage == "fq"
+    q1, q2, q3 = op.operand[0], op.operand[1], op.operand[2]
+    assert q1.dtype == np.int16
+    # residual planes are broadcast tiles, not full planes
+    assert q2.shape[0] < q1.shape[0] and q3.shape[0] < q1.shape[0]
